@@ -39,19 +39,6 @@ __device__ __forceinline__ long long win_row_to_token(const WinGeom& g,
   return ((b * g.D + d) * g.H + h) * (long long)g.W + w;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // ---------------------------------------------------------------------------
 // (a) LayerNorm over C (C % 32 == 0, C <= 1024), one warp per row, f32 math,
 // bf16 out. gather != 0: output row r is window token r (win_row_to_token).
@@ -247,8 +234,6 @@ size_t attn_smem_bytes(int Np, int hd, int nwarps) {
          (size_t)nwarps * 16 * Np * (sizeof(float) + sizeof(bf16));
 }
 
-constexpr size_t kMaxSmem = 227 * 1024;
-
 int attn_warps(int Np, int hd) {
   const size_t fixed = attn_smem_bytes(Np, hd, 0);
   const size_t per = attn_smem_bytes(Np, hd, 1) - fixed;
@@ -291,37 +276,49 @@ namespace {
 // is fetched into registers while the current one multiplies.
 // Requires K % 8 == 0 (16-byte loads); M and N are bounds-checked.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void epilogue_store(const Epilogue& ep, bf16* out,
-                                               long long m, int n, int ldc,
-                                               float acc) {
-  float a = acc + ep.bias[n];
-  switch (ep.mode) {
-    case EPI_BIAS:
-      out[m * ldc + n] = __float2bfloat16(a);
-      break;
-    case EPI_BIAS_GELU:
-      out[m * ldc + n] = __float2bfloat16(
-          a * 0.5f * (1.f + erff(a * 0.70710678118654752f)));
-      break;
-    case EPI_ATTN_OUT: {
-      if (ep.dp) a *= ep.dp[m / ep.dp_rows];
-      float v = __bfloat162float(__float2bfloat16(a));
-      const long long dst = ep.scatter ? win_row_to_token(ep.g, m) : m;
-      if (ep.res) v += __bfloat162float(ep.res[dst * ldc + n]);
-      out[dst * ldc + n] = __float2bfloat16(v);
-      break;
-    }
-    case EPI_MLP_OUT: {
-      if (ep.dp) a *= ep.dp[m / ep.dp_rows];
-      out[m * ldc + n] =
-          __float2bfloat16(__bfloat162float(ep.res[m * ldc + n]) + a);
-      break;
-    }
+// Stores one element; returns the f32 value whose column sum EPI_GELU_BWD
+// keeps (0 for the other modes). The mode is a template argument, so each
+// GEMM instantiation carries only its own epilogue.
+template <int kMode>
+__device__ __forceinline__ float epilogue_store(const Epilogue& ep, bf16* out,
+                                                long long m, int n, int ldc,
+                                                float acc) {
+  float a = ep.bias ? acc + ep.bias[n] : acc;
+  if constexpr (kMode == EPI_BIAS) {
+    out[m * ldc + n] = __float2bfloat16(a);
+  } else if constexpr (kMode == EPI_BIAS_GELU) {
+    out[m * ldc + n] = __float2bfloat16(
+        a * 0.5f * (1.f + erff(a * 0.70710678118654752f)));
+  } else if constexpr (kMode == EPI_ATTN_OUT) {
+    if (ep.dp) a *= ep.dp[m / ep.dp_rows];
+    float v = __bfloat162float(__float2bfloat16(a));
+    const long long dst = ep.scatter ? win_row_to_token(ep.g, m) : m;
+    if (ep.res) v += __bfloat162float(ep.res[dst * ldc + n]);
+    out[dst * ldc + n] = __float2bfloat16(v);
+  } else if constexpr (kMode == EPI_MLP_OUT) {
+    if (ep.dp) a *= ep.dp[m / ep.dp_rows];
+    out[m * ldc + n] =
+        __float2bfloat16(__bfloat162float(ep.res[m * ldc + n]) + a);
+  } else if constexpr (kMode == EPI_PRE_GELU) {
+    ep.aux[m * ldc + n] = a;
+    out[m * ldc + n] = __float2bfloat16(
+        a * 0.5f * (1.f + erff(a * 0.70710678118654752f)));
+  } else {  // EPI_GELU_BWD
+    // gelu'(p) = cdf(p) + p pdf(p), pdf(p) = exp(-p^2 / 2) / sqrt(2 pi)
+    const float p = ep.aux[m * ldc + n];
+    const float cdf = 0.5f * (1.f + erff(p * 0.70710678118654752f));
+    const float pdf = expf(-0.5f * p * p) * 0.39894228040143268f;
+    const float d = a * (cdf + p * pdf);
+    out[m * ldc + n] = __float2bfloat16(d);
+    return d;
   }
+  return 0.f;
 }
 
 constexpr int GBM = 128, GBN = 128, GBK = 32, GLDS = GBK + 8;
 
+// kMode: the epilogue; EPI_GELU_BWD also keeps column sums.
+template <int kMode>
 __global__ void __launch_bounds__(256)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
                  bf16* __restrict__ out, long long M, int N, int K,
@@ -390,8 +387,14 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
     }
   }
 
+  constexpr bool kColSum = kMode == EPI_GELU_BWD;
   float* cs = Cs[warp];
   const int r = lane >> 1, c0 = (lane & 1) * 8;
+  float colacc[kColSum ? 4 : 1][8];
+#pragma unroll
+  for (int j = 0; j < (kColSum ? 4 : 1); ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) colacc[j][c] = 0.f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -402,10 +405,39 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
       const int gn0 = n0 + wn * 64 + j * 16 + c0;
       if (gm < M) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          if (gn0 + c < N) epilogue_store(ep, out, gm, gn0 + c, N, cs[r * 16 + c0 + c]);
+        for (int c = 0; c < 8; ++c) {
+          if (gn0 + c < N) {
+            const float v = epilogue_store<kMode>(ep, out, gm, gn0 + c, N,
+                                                  cs[r * 16 + c0 + c]);
+            if constexpr (kColSum) colacc[j][c] += v;
+          }
+        }
       }
       __syncwarp();
+    }
+  }
+  if constexpr (kColSum) {
+    // sum the 16 rows a lane pair covers (lanes of equal parity), then
+    // lanes 0 and 1 write this warp row's column sums: a fixed order
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float v = colacc[j][c];
+#pragma unroll
+        for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        colacc[j][c] = v;
+      }
+    }
+    if (lane < 2) {
+      float* row = ep.colsum + ((long long)blockIdx.x * 4 + wm) * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gn0 = n0 + wn * 64 + j * 16 + lane * 8;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (gn0 + c < N) row[gn0 + c] = colacc[j][c];
+      }
     }
   }
 }
@@ -416,9 +448,210 @@ int launch_gemm(const bf16* A, const bf16* Wt, bf16* out, long long M, int N,
                 int K, const Epilogue& ep, cudaStream_t stream) {
   if (K % 8 != 0) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((M + GBM - 1) / GBM), (N + GBN - 1) / GBN);
-  gemm_bf16_kernel<<<grid, 256, 0, stream>>>(A, Wt, out, M, N, K, ep);
+  switch (ep.mode) {
+#define LRCE_GEMM_CASE(MODE)                                              \
+  case MODE:                                                              \
+    gemm_bf16_kernel<MODE><<<grid, 256, 0, stream>>>(A, Wt, out, M, N, K, \
+                                                     ep);                 \
+    break;
+    LRCE_GEMM_CASE(EPI_BIAS)
+    LRCE_GEMM_CASE(EPI_BIAS_GELU)
+    LRCE_GEMM_CASE(EPI_ATTN_OUT)
+    LRCE_GEMM_CASE(EPI_MLP_OUT)
+    LRCE_GEMM_CASE(EPI_PRE_GELU)
+    LRCE_GEMM_CASE(EPI_GELU_BWD)
+#undef LRCE_GEMM_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   LRCE_CHECK_LAUNCH();
   return 0;
+}
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Row gather into window order, and per-sample row scaling (8 bf16 a thread)
+// ---------------------------------------------------------------------------
+__global__ void gather_rows_kernel(const bf16* __restrict__ src,
+                                   bf16* __restrict__ dst, long long rows,
+                                   WinGeom g) {
+  const int vecs = g.C >> 3;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * vecs) return;
+  const long long r = idx / vecs;
+  const int v = (int)(idx % vecs);
+  const long long s = win_row_to_token(g, r);
+  reinterpret_cast<uint4*>(dst + r * g.C)[v] =
+      reinterpret_cast<const uint4*>(src + s * g.C)[v];
+}
+
+__global__ void scale_rows_kernel(const bf16* __restrict__ in,
+                                  bf16* __restrict__ out,
+                                  const float* __restrict__ dp,
+                                  long long rows, int C, long long dp_rows) {
+  const int vecs = C >> 3;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * vecs) return;
+  const long long r = idx / vecs;
+  const float k = dp[r / dp_rows];
+  uint4 u = reinterpret_cast<const uint4*>(in)[idx];
+  bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    e[i] = __float2bfloat16(__bfloat162float(e[i]) * k);
+  reinterpret_cast<uint4*>(out)[idx] = u;
+}
+
+// ---------------------------------------------------------------------------
+// (d) Weight-gradient GEMM: part[s] (N x K) = G[m in chunk s]^T . A[same m].
+// Output tile 64 x 64 per CTA (4 warps of 32 x 32), reduction step 32 rows;
+// G's tile is the col-major A operand of WMMA, A's tile the row-major B
+// operand, so neither needs a transpose. The next step's rows are fetched
+// into registers while the current ones multiply.
+// ---------------------------------------------------------------------------
+constexpr int TBN = 64, TBK = 64, TBM = 32, TLD = 72;
+
+__global__ void __launch_bounds__(128)
+gemm_tn_kernel(const bf16* __restrict__ G, const bf16* __restrict__ A,
+               float* __restrict__ part, long long M, int N, int K,
+               long long chunk) {
+  __shared__ __align__(128) bf16 Gs[TBM * TLD];
+  __shared__ __align__(128) bf16 As[TBM * TLD];
+  __shared__ __align__(128) float Cs[4][16 * 16];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wn = warp >> 1, wk = warp & 1;
+  const int n0 = blockIdx.x * TBN, k0 = blockIdx.y * TBK;
+  const long long m_begin = (long long)blockIdx.z * chunk;
+  const long long m_end = m_begin + chunk < M ? m_begin + chunk : M;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  uint4 rg[2], ra[2];
+  auto load = [&](long long m0) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int idx = tid + v * 128;
+      const int r = idx >> 3, c = (idx & 7) * 8;
+      const long long gm = m0 + r;
+      const bool in = gm < m_end;
+      rg[v] = (in && n0 + c < N)
+                  ? *reinterpret_cast<const uint4*>(G + gm * N + n0 + c)
+                  : make_uint4(0, 0, 0, 0);
+      ra[v] = (in && k0 + c < K)
+                  ? *reinterpret_cast<const uint4*>(A + gm * K + k0 + c)
+                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  if (m_begin < m_end) load(m_begin);
+  for (long long m0 = m_begin; m0 < m_end; m0 += TBM) {
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int idx = tid + v * 128;
+      const int r = idx >> 3, c = (idx & 7) * 8;
+      *reinterpret_cast<uint4*>(Gs + r * TLD + c) = rg[v];
+      *reinterpret_cast<uint4*>(As + r * TLD + c) = ra[v];
+    }
+    __syncthreads();
+    if (m0 + TBM < m_end) load(m0 + TBM);
+#pragma unroll
+    for (int kk = 0; kk < TBM; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], Gs + kk * TLD + wn * 32 + i * 16, TLD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], As + kk * TLD + wk * 32 + j * 16, TLD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+
+  float* out = part + (long long)blockIdx.z * N * K;
+  float* cs = Cs[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int gn = n0 + wn * 32 + i * 16 + (e >> 4);
+        const int gk = k0 + wk * 32 + j * 16 + (e & 15);
+        if (gn < N && gk < K) out[(long long)gn * K + gk] = cs[e];
+      }
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void sum_parts_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int parts,
+                                 long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += part[(long long)p * n + i];
+  out[i] = s;
+}
+
+unsigned blocks_for(long long work, int threads) {
+  return (unsigned)((work + threads - 1) / threads);
+}
+
+}  // namespace
+
+int launch_gather(const bf16* src, bf16* dst, long long rows,
+                  const WinGeom& g, cudaStream_t stream) {
+  if (g.C % 8 != 0) return (int)cudaErrorInvalidValue;
+  const long long work = rows * (g.C / 8);
+  gather_rows_kernel<<<blocks_for(work, 256), 256, 0, stream>>>(src, dst,
+                                                                rows, g);
+  LRCE_CHECK_LAUNCH();
+  return 0;
+}
+
+int launch_scale_rows(const bf16* in, bf16* out, const float* dp,
+                      long long rows, int C, long long dp_rows,
+                      cudaStream_t stream) {
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  const long long work = rows * (C / 8);
+  scale_rows_kernel<<<blocks_for(work, 256), 256, 0, stream>>>(
+      in, out, dp, rows, C, dp_rows);
+  LRCE_CHECK_LAUNCH();
+  return 0;
+}
+
+int launch_sum_parts(const float* part, float* out, int parts, long long n,
+                     cudaStream_t stream) {
+  sum_parts_kernel<<<blocks_for(n, 256), 256, 0, stream>>>(part, out, parts,
+                                                           n);
+  LRCE_CHECK_LAUNCH();
+  return 0;
+}
+
+int launch_gemm_tn(const bf16* G, const bf16* A, float* out, long long M,
+                   int N, int K, int splits, float* ws, cudaStream_t stream) {
+  if (N % 8 != 0 || K % 8 != 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  long long chunk = (M + splits - 1) / splits;
+  chunk = (chunk + TBM - 1) / TBM * TBM;
+  dim3 grid((N + TBN - 1) / TBN, (K + TBK - 1) / TBK, splits);
+  float* part = splits == 1 ? out : ws;
+  gemm_tn_kernel<<<grid, 128, 0, stream>>>(G, A, part, M, N, K, chunk);
+  LRCE_CHECK_LAUNCH();
+  if (splits == 1) return 0;
+  return launch_sum_parts(ws, out, splits, (long long)N * K, stream);
 }
 
 namespace {

@@ -1,8 +1,11 @@
-"""BERT-base text encoder with HuggingFace numerics, eval forward.
+"""BERT-base text encoder with HuggingFace numerics, eval and training
+forward.
 
 Counterpart of ``lrce_tpu/models/bert.py``: post-norm layers, LayerNorm eps
 1e-12, exact GELU, the additive (1 - mask) * finfo.min attention mask,
-written with plain matmul and softmax. Module and parameter names are
+written with plain matmul and softmax. In training, dropout runs where the
+JAX package has it: the embeddings, the attention weights, the attention
+output and the feed-forward output, drawn from the caller's generator. Module and parameter names are
 HuggingFace ``BertModel``'s, so ``state_dict()`` is the reference
 ``text_extractor.bert.*`` checkpoint.
 """
@@ -15,7 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from lrce_tpu_torch.ops.nn import LayerNorm, Linear, gelu
+from lrce_tpu_torch.ops.nn import LayerNorm, Linear, dropout, gelu
 
 LN_EPS = 1e-12
 
@@ -28,6 +31,8 @@ class BertConfig(NamedTuple):
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
 
 
 BERT_BASE = BertConfig()
@@ -66,11 +71,13 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.attention_dropout = cfg.attention_dropout
         self.query = _linear(d, d, dtype, generator)
         self.key = _linear(d, d, dtype, generator)
         self.value = _linear(d, d, dtype, generator)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                training: bool = False, generator=None) -> torch.Tensor:
         b, s, d = x.shape
         hd = d // self.num_heads
 
@@ -80,7 +87,8 @@ class BertSelfAttention(nn.Module):
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits / math.sqrt(hd) + bias
-        weights = torch.softmax(logits, dim=-1)
+        weights = dropout(torch.softmax(logits, dim=-1),
+                          self.attention_dropout, training, generator)
         ctx = torch.matmul(weights.to(x.dtype).float(), v.float()).to(x.dtype)
         return ctx.transpose(1, 2).reshape(b, s, d)
 
@@ -98,8 +106,10 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg, dtype, generator)
         self.output = BertSelfOutput(cfg, dtype, generator)
 
-    def forward(self, x, bias):
-        out = self.output.dense(self.self(x, bias))
+    def forward(self, x, bias, rate: float = 0.0, training: bool = False,
+                generator=None):
+        out = self.output.dense(self.self(x, bias, training, generator))
+        out = dropout(out, rate, training, generator)
         return self.output.LayerNorm(x + out)
 
 
@@ -125,10 +135,12 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg, dtype, generator)
         self.output = BertOutput(cfg, dtype, generator)
 
-    def forward(self, x, bias):
-        x = self.attention(x, bias)
+    def forward(self, x, bias, rate: float = 0.0, training: bool = False,
+                generator=None):
+        x = self.attention(x, bias, rate, training, generator)
         h = gelu(self.intermediate.dense(x))
-        return self.output.LayerNorm(x + self.output.dense(h))
+        h = dropout(self.output.dense(h), rate, training, generator)
+        return self.output.LayerNorm(x + h)
 
 
 class BertEncoder(nn.Module):
@@ -149,28 +161,32 @@ class BertPooler(nn.Module):
 
 class BertModel(nn.Module):
     def __init__(self, cfg: BertConfig = BERT_BASE, *, dtype=torch.float32,
-                 generator: torch.Generator):
+                 generator: torch.Generator, compute_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.dtype = dtype
+        self.dtype = compute_dtype or dtype   # the layers' activation dtype
         self.embeddings = BertEmbeddings(cfg, generator)
         self.encoder = BertEncoder(cfg, dtype, generator)
         self.pooler = BertPooler(cfg, dtype, generator)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, L) token ids -> (B, L, hidden) last hidden state. The
-        embeddings are f32; the layers run in the model's dtype."""
+        embeddings are f32; the layers run in the compute dtype."""
         b, s = input_ids.shape
+        rate = self.cfg.hidden_dropout
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids).to(self.dtype)
+        x = self.embeddings(input_ids, token_type_ids)
+        x = dropout(x, rate, training, generator).to(self.dtype)
         if attention_mask is None:
             bias = torch.zeros((b, 1, 1, s), device=x.device)
         else:
             bias = (1.0 - attention_mask.float())[:, None, None, :]
             bias = bias * torch.finfo(torch.float32).min
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, rate, training, generator)
         return x

@@ -7,6 +7,10 @@ clips with a shared summarization token, and the open-ended,
 multiple-choice and count heads. The JAX package's two ``lax.scan``s (over
 layers and over clips) are plain Python loops here.
 
+In training, dropout (``drop_out_rate``) runs where the JAX package has
+it: both attentions' weights and outputs, the feed-forward hidden and
+output, the token after each clip, and the head's embedded inputs.
+
 Kept reference quirk: ``texts_attention_mask`` is accepted but never
 applied inside the fusion.
 """
@@ -20,7 +24,8 @@ import torch
 from torch import nn
 
 from lrce_tpu_torch.models.embedding import TextPosEmbed, VideoPosEmbed, xavier_normal
-from lrce_tpu_torch.ops.nn import LayerNorm, Linear, MultiheadAttention, gelu
+from lrce_tpu_torch.ops.nn import (LayerNorm, Linear, MultiheadAttention,
+                                   dropout, gelu)
 
 LN_EPS = 1e-12
 NUM_LAYERS = 12
@@ -43,10 +48,17 @@ class DecoderLayer(nn.Module):
         self.norm2 = LayerNorm(dim, LN_EPS)
         self.norm3 = LayerNorm(dim, LN_EPS)
 
-    def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(tgt + self.self_attn(tgt, tgt, tgt))
-        x = self.norm2(x + self.multihead_attn(x, memory, memory))
-        return self.norm3(x + self.linear2(gelu(self.linear1(x))))
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                rate: float = 0.0, training: bool = False,
+                generator=None) -> torch.Tensor:
+        def drop(t):
+            return dropout(t, rate, training, generator)
+
+        kw = dict(dropout_rate=rate, training=training, generator=generator)
+        x = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, **kw)))
+        x = self.norm2(x + drop(self.multihead_attn(x, memory, memory, **kw)))
+        h = drop(gelu(self.linear1(x)))
+        return self.norm3(x + drop(self.linear2(h)))
 
 
 class TransformerDecoder(nn.Module):
@@ -66,7 +78,9 @@ class FusionTransformer(nn.Module):
         self.fusion_layer_norm = LayerNorm(dim, LN_EPS)
         self.summarization_token = nn.Parameter(xavier_normal((1, 1, dim), generator))
 
-    def forward(self, video: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, text: torch.Tensor,
+                rate: float = 0.0, training: bool = False,
+                generator=None) -> torch.Tensor:
         """video (B, n_clips, L_v, D), text (B, L_t, D) -> (B, 1, D): the
         token is folded over the clips."""
         b, n_clips, _, d = video.shape
@@ -75,8 +89,9 @@ class FusionTransformer(nn.Module):
             memory = torch.cat([video[:, i], text], dim=1)
             res = token
             for layer in self.transformer.layers:
-                res = layer(res, memory)
+                res = layer(res, memory, rate, training, generator)
             token = self.fusion_layer_norm(token + res)
+            token = dropout(token, rate, training, generator)
         return token
 
 
@@ -88,11 +103,13 @@ class LRCEHead(nn.Module):
     def __init__(self, task_type: str, feature_dim: int, num_classes: int,
                  video_feature_res: Sequence[int], video_feature_dim: int,
                  frame_sample_size: int, temporal_scale: Sequence[int],
-                 text_seq_len: int, dtype, generator):
+                 text_seq_len: int, dtype, generator,
+                 dropout_rate: float = 0.1):
         super().__init__()
         if task_type not in ("oe", "mc", "count"):
             raise ValueError(f"Unsupported task type {task_type}")
         self.task_type = task_type
+        self.dropout_rate = dropout_rate
         self.video_pos_embed = VideoPosEmbed(feature_dim, video_feature_res,
                                              frame_sample_size,
                                              sum(temporal_scale), generator)
@@ -104,25 +121,34 @@ class LRCEHead(nn.Module):
             Linear(video_feature_dim, feature_dim, dtype=dtype, generator=generator)
             if video_feature_dim != feature_dim else None)
 
-    def _embed(self, video, text):
+    def _embed(self, video, text, training, generator):
         if self.projection_layer is not None:
             video = self.projection_layer(video)
-        return self.video_pos_embed(video), self.question_pos_embed(text)
+        rate = self.dropout_rate
+        return (dropout(self.video_pos_embed(video), rate, training, generator),
+                dropout(self.question_pos_embed(text), rate, training,
+                        generator))
 
     def forward(self, video: torch.Tensor, text: torch.Tensor,
-                texts_attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                texts_attention_mask: Optional[torch.Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """video (B, n_clips, T, HW, Dv); text (B, L, D), or (B, M, L, D) for
         mc. Returns (B, num_classes) for oe, (B, M) for mc, (B,) for count."""
         del texts_attention_mask  # reference quirk: never applied
         batch = video.shape[0]
+        fuse = lambda v, t: self.fusion_transformer(  # noqa: E731
+            v, t, self.dropout_rate, training, generator)
         if self.task_type == "mc":
             m = text.shape[1]
-            video, text = self._embed(video, text.reshape((batch * m,) + text.shape[2:]))
+            video, text = self._embed(
+                video, text.reshape((batch * m,) + text.shape[2:]), training,
+                generator)
             video = video.repeat_interleave(m, dim=0)
-            out = self.final_fc(self.fusion_transformer(video, text)[:, 0])
+            out = self.final_fc(fuse(video, text)[:, 0])
             return out.reshape(batch, m)
-        video, text = self._embed(video, text)
-        out = self.final_fc(self.fusion_transformer(video, text)[:, 0])
+        video, text = self._embed(video, text, training, generator)
+        out = self.final_fc(fuse(video, text)[:, 0])
         if self.task_type == "count":
             return torch.relu(out.reshape(batch))
         return out.reshape(batch, -1)

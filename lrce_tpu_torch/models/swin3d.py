@@ -1,4 +1,5 @@
-"""Video Swin Transformer 3D (Swin-B), channels-last, eval forward.
+"""Video Swin Transformer 3D (Swin-B), channels-last, eval and training
+forward.
 
 Counterpart of ``lrce_tpu/models/swin3d.py``: patch embed Conv3d (2,4,4),
 four stages of (W-MSA, SW-MSA) blocks with relative position bias, patch
@@ -18,7 +19,15 @@ Two routes through a stage, chosen by ``SwinTransformer3D.use_kernels``:
   - plain: every block is ``swin_block``, the JAX package's XLA path (pad,
     roll, partition, attention, reverse, unroll, crop, MLP).
 On a CPU tensor a kernel wrapper runs its own plain version, so both
-routes run, and are tested, without a GPU.
+routes run, and are tested, without a GPU. The kernel wrappers are
+``autograd.Function``s (backward K6 + K5 + K4, or K4 for K2), so both
+routes train.
+
+In training every block draws per-sample stochastic-depth multipliers
+dp1, dp2 (B,) = bernoulli(1 - rate) / (1 - rate) from the caller's
+``torch.Generator``, with the rates linspace(0, drop_path_rate) over all
+blocks, as ``lrce_tpu.models.swin3d`` draws them; both routes consume the
+same draws.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ class SwinConfig(NamedTuple):
     num_heads: Tuple[int, ...] = (4, 8, 16, 32)
     window_size: Tuple[int, int, int] = (8, 7, 7)
     mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.2
 
 
 SWIN_BASE = SwinConfig()
@@ -186,13 +196,16 @@ class SwinTransformerBlock3D(nn.Module):
         self.norm2 = LayerNorm(dim, LN_EPS)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dtype, generator)
 
-    def kernel_weights(self):
+    def kernel_weights(self, compute_dtype):
         """Block parameters in the kernel wrappers' argument order, less
-        rel_bias / mask / dp."""
+        rel_bias / mask / dp; the weight matrices cast to the compute dtype
+        (a differentiable cast: their gradients reach the masters)."""
         a, m = self.attn, self.mlp
-        return (self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
-                a.proj.weight, a.proj.bias, self.norm2.weight, self.norm2.bias,
-                m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+        cd = lambda w: w.to(compute_dtype)  # noqa: E731
+        return (self.norm1.weight, self.norm1.bias, cd(a.qkv.weight),
+                a.qkv.bias, cd(a.proj.weight), a.proj.bias, self.norm2.weight,
+                self.norm2.bias, cd(m.fc1.weight), m.fc1.bias,
+                cd(m.fc2.weight), m.fc2.bias)
 
 
 class PatchMerging(nn.Module):
@@ -210,6 +223,22 @@ class PatchMerging(nn.Module):
         x = torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
                        x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=-1)
         return self.reduction(self.norm(x))
+
+
+def drop_path_multipliers(b: int, rate: float, generator: torch.Generator,
+                          device) -> torch.Tensor:
+    """(B,) f32 per-sample stochastic-depth multipliers: 1/keep with
+    probability keep = 1 - rate, else 0."""
+    keep = 1.0 - rate
+    draw = torch.rand((b,), generator=generator, device=device)
+    return (draw < keep).float() / keep
+
+
+def drop_path(y: torch.Tensor, dp: Optional[torch.Tensor]) -> torch.Tensor:
+    """y scaled per sample by dp (B,) in f32 and rounded; identity for None."""
+    if dp is None:
+        return y
+    return (y.float() * dp.reshape((-1,) + (1,) * (y.ndim - 1))).to(y.dtype)
 
 
 def window_attention(attn: WindowAttention3D, x: torch.Tensor, num_heads: int,
@@ -234,11 +263,12 @@ def window_attention(attn: WindowAttention3D, x: torch.Tensor, num_heads: int,
 
 def swin_block(blk: SwinTransformerBlock3D, x: torch.Tensor, *, num_heads: int,
                window: Tuple[int, int, int], shift: Tuple[int, int, int],
-               rel_index: torch.Tensor,
-               mask: Optional[torch.Tensor]) -> torch.Tensor:
+               rel_index: torch.Tensor, mask: Optional[torch.Tensor],
+               dp1: Optional[torch.Tensor] = None,
+               dp2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One Swin block, the plain route: LN1, pad to window multiples, roll
     by -shift, window attention, reverse, roll back, crop, residual, then
-    LN2 + MLP + residual."""
+    LN2 + MLP + residual; dp1 / dp2 scale the two branches per sample."""
     b, d, h, w, c = x.shape
     pad_d = (window[0] - d % window[0]) % window[0]
     pad_h = (window[1] - h % window[1]) % window[1]
@@ -256,8 +286,8 @@ def swin_block(blk: SwinTransformerBlock3D, x: torch.Tensor, *, num_heads: int,
         y = torch.roll(y, tuple(shift), (1, 2, 3))
     if pad_d or pad_h or pad_w:
         y = y[:, :d, :h, :w].contiguous()
-    x = x + y
-    return x + blk.mlp(blk.norm2(x))
+    x = x + drop_path(y, dp1)
+    return x + drop_path(blk.mlp(blk.norm2(x)), dp2)
 
 
 class BasicLayer(nn.Module):
@@ -278,8 +308,11 @@ class BasicLayer(nn.Module):
                            else None)
 
     def forward(self, x: torch.Tensor, use_kernels: bool,
-                consts: "DeviceConstants") -> torch.Tensor:
-        _, d, h, w, c = x.shape
+                consts: "DeviceConstants",
+                dp_rates: Optional[Sequence[float]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """dp_rates: the blocks' drop-path rates in training, else None."""
+        b, d, h, w, c = x.shape
         window, shift = get_window_size(
             (d, h, w), self.window_size, tuple(s // 2 for s in self.window_size))
         dims = tuple(-(-v // wv) * wv for v, wv in zip((d, h, w), window))
@@ -290,24 +323,31 @@ class BasicLayer(nn.Module):
         aligned = dims == (d, h, w)
         nwin = tuple(v // wv for v, wv in zip(dims, window))
         heads = self.num_heads
+        dt = x.dtype
         for j, blk in enumerate(self.blocks):
             s = shift if j % 2 else (0, 0, 0)
             m = mask if j % 2 else None
+            dp1 = dp2 = None
+            if dp_rates is not None:
+                dp1, dp2 = (drop_path_multipliers(b, dp_rates[j], generator,
+                                                  x.device) for _ in range(2))
             if not (use_kernels and aligned):
                 x = swin_block(blk, x, num_heads=heads, window=window, shift=s,
-                               rel_index=rel_index, mask=m)
+                               rel_index=rel_index, mask=m, dp1=dp1, dp2=dp2)
                 continue
             rel_bias = blk.attn.rel_bias(rel_index)
             mask5 = None if m is None else m.reshape(*nwin, n, n)
-            wts = blk.kernel_weights()
+            wts = blk.kernel_weights(dt)
             if c <= BLOCK_KERNEL_MAX_C and m is None:
                 x = fused_swin_block(x, *wts[:6], rel_bias, None, *wts[6:],
-                                     None, None, window, heads, LN_EPS)
+                                     dp1, dp2, window, heads, LN_EPS)
             elif c <= BLOCK_KERNEL_MAX_C:
                 stk = [t.unsqueeze(0) for t in wts]
+                one = (lambda t: None if t is None  # noqa: E731
+                       else t.unsqueeze(0))
                 x = fused_swin_pair(x, *stk[:6], rel_bias.unsqueeze(0), mask5,
-                                    *stk[6:], None, None, window, heads, (s,),
-                                    LN_EPS)
+                                    *stk[6:], one(dp1), one(dp2), window,
+                                    heads, (s,), LN_EPS)
             else:
                 # the JAX package rolls around K2 and leaves LN2 + MLP to XLA
                 y = torch.roll(x, tuple(-v for v in s), (1, 2, 3)) if m is not None else x
@@ -315,8 +355,8 @@ class BasicLayer(nn.Module):
                                                   window, heads, LN_EPS)
                 if m is not None:
                     y = torch.roll(y, tuple(s), (1, 2, 3))
-                x = x + y
-                x = x + blk.mlp(blk.norm2(x))
+                x = x + drop_path(y, dp1)
+                x = x + drop_path(blk.mlp(blk.norm2(x)), dp2)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -362,8 +402,16 @@ class SwinTransformer3D(nn.Module):
             for i in range(n_stages))
         self.norm = LayerNorm(int(cfg.embed_dim * 2 ** (n_stages - 1)), LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """training: draw drop-path multipliers from ``generator``."""
         x = self.patch_embed(x)
-        for layer in self.layers:
-            x = layer(x, self.use_kernels, self.consts)
+        depths = self.cfg.depths
+        rates = np.linspace(0, self.cfg.drop_path_rate, sum(depths)).tolist()
+        offset = 0
+        for layer, depth in zip(self.layers, depths):
+            x = layer(x, self.use_kernels, self.consts,
+                      rates[offset:offset + depth] if training else None,
+                      generator)
+            offset += depth
         return self.norm(x)

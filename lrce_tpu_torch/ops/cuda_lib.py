@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``lrce_tpu_torch/csrc``).
 
-The sources have a plain C interface and include no PyTorch header, so
-``nvcc`` builds them into one shared library in a few seconds; ``ctypes``
-loads it. The build runs at first use, into ``lrce_tpu_torch/_build/``
-(ignored by git), under a name that carries a hash of the sources, so an
-edited source is rebuilt and an unchanged one is not. Nothing here runs when
-the module is imported.
+The sources have a plain C interface and include no PyTorch header. One
+``nvcc`` per source compiles them all at once (in parallel), a final
+``nvcc`` links them into one shared library, and ``ctypes`` loads it. The
+build runs at first use, into ``lrce_tpu_torch/_build/`` (ignored by git),
+under a name that carries a hash of the sources, so an edited source is
+rebuilt and an unchanged one is not. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("swin_common.cu", "swin_block.cu", "window_attn.cu")
+SOURCES = ("swin_common.cu", "swin_block.cu", "window_attn.cu",
+           "attn_bwd.cu", "mlp_bwd.cu")
 HEADERS = ("swin_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -36,7 +38,13 @@ _SIGNATURES = {
     "lrce_swin_block_fwd": (
         [_P, _P] + [_I] * 12 + [_I, _F] + [_P] * 16 + [_P] * 3 + [_P]),
     "lrce_window_attn_fwd": (
-        [_P, _P] + [_I] * 8 + [_I, _F] + [_P] * 8 + [_P] * 2 + [_P]),
+        [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 8 + [_P] * 2 + [_P]),
+    "lrce_attn_bwd": (
+        [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 8 + [_P] * 5 + [_P] * 9
+        + [_I, _I, _P]),
+    "lrce_mlp_bwd": (
+        [_P, _P] + [_I] * 6 + [_F] + [_P] * 7 + [_P] * 5 + [_P] * 6
+        + [_I, _I, _P]),
 }
 
 
@@ -67,6 +75,22 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise if any fails. Returns their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the sources for sm_90a unless this exact build exists.
     Returns (library path, seconds spent compiling, compiler output)."""
@@ -74,16 +98,19 @@ def build() -> tuple[Path, float, str]:
     if path.exists():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                     "-fPIC", "-Xptxas=-v", "-c", str(CSRC / s), "-o",
+                     str(o)] for s, o in zip(SOURCES, objs)])
+    tmp = path.with_suffix(f".{tag}")
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, path)   # atomic: concurrent builders never see half a file
     return path, seconds, log
 

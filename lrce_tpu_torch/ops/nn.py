@@ -3,18 +3,17 @@
 Counterpart of ``lrce_tpu/ops/nn.py`` with the same numerics:
   - weights use PyTorch's ``nn.Linear`` layout (out, in), so a module's
     ``state_dict`` is a reference checkpoint;
-  - a matrix product runs in the activation dtype and its bias is added in
-    f32 before the one cast back (on the CPU in f32 this is exactly the JAX
-    ``dense``; in bf16 on the GPU the product is rounded once more, before
-    the bias);
+  - a matrix product accumulates in f32, its bias is added in f32 and the
+    sum is rounded once to the activation dtype, as the JAX ``dense``
+    (``preferred_element_type=f32``) does;
   - LayerNorm and softmax compute in f32 whatever the activation dtype;
   - GELU is the exact erf form, in f32;
   - ``mha`` has ``torch.nn.MultiheadAttention`` semantics with a packed
     in-projection, written out so that its rounding points are the JAX ones.
 
-Matrix weights are stored in the model's compute dtype (the JAX package
-casts them at each use, which rounds the same way); LayerNorm parameters,
-biases and embeddings stay f32.
+Matrix weights are stored in the model's parameter dtype and cast to the
+activation dtype at each use, as the JAX package does; LayerNorm
+parameters, biases and embeddings stay f32.
 """
 
 from __future__ import annotations
@@ -32,13 +31,55 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x2 (M, K) @ w (N, K).T -> (M, N) f32 for bf16 CUDA operands:
+    ``torch.mm(..., out_dtype=torch.float32)`` (``aten::mm.dtype``), which
+    has no derivative of its own. The backward keeps the f32 cotangent
+    unrounded, multiplies it with the upcast operands in f32 and rounds dx
+    and dw once to the operands' dtype, as JAX's transpose of a dot with
+    ``preferred_element_type=f32`` does."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.float()
+        return (torch.mm(g, w.float()).to(x2.dtype),
+                torch.mm(g.t(), x2.float()).to(w.dtype))
+
+
+def matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T accumulated and returned in f32, the product unrounded.
+
+    bf16 on CUDA: ``aten::mm.dtype``, through ``_MatmulF32`` when a
+    gradient is wanted; bf16 on the CPU, where ``aten::mm.dtype`` has no
+    kernel: the bf16 values upcast, whose products f32 holds exactly. f32:
+    a plain matmul."""
+    w = weight.to(x.dtype)
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w.t())
+    x2 = x.reshape(-1, x.shape[-1])
+    if not x.is_cuda:
+        y = torch.mm(x2.float(), w.float().t())
+    elif torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        y = _MatmulF32.apply(x2, w)
+    else:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ weight.T (+ bias in f32), result in x's dtype; weight is (out, in)."""
-    y = torch.matmul(x, weight.to(x.dtype).t())
-    if bias is None:
-        return y
-    return (y.float() + bias.float()).to(x.dtype)
+    """x @ weight.T (+ bias) in f32, rounded once to x's dtype; weight is
+    (out, in)."""
+    y = matmul_f32(x, weight)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -63,6 +104,26 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
+def layer_norm_input_bwd(x: torch.Tensor, dy: torch.Tensor,
+                         weight: torch.Tensor, eps: float):
+    """Backward of ``layer_norm`` in f32, as the JAX kernels' VJPs run it
+    outside the Pallas call: (dx f32, dweight f32, dbias f32) for the
+    cotangent dy of the normalized output."""
+    xf = x.float()
+    dyf = dy.float()
+    mean = xf.mean(-1, keepdim=True)
+    d = xf - mean
+    inv = torch.rsqrt((d * d).mean(-1, keepdim=True) + eps)
+    xn = d * inv
+    dims = tuple(range(x.ndim - 1))
+    dweight = (dyf * xn).sum(dims)
+    dbias = dyf.sum(dims)
+    dxn = dyf * weight.float()
+    dx = inv * (dxn - dxn.mean(-1, keepdim=True)
+                - xn * (dxn * xn).mean(-1, keepdim=True))
+    return dx, dweight, dbias
+
+
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, d = x.shape
     return x.reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
@@ -71,12 +132,15 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def mha(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
         in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
         out_weight: torch.Tensor, out_bias: torch.Tensor, num_heads: int,
-        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+        training: bool = False,
+        generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Batch-first multi-head attention (B, S, D).
 
     in_proj_weight: (3D, D) packed [q; k; v] rows, as in
     torch.nn.MultiheadAttention. mask: additive, broadcastable to
-    (B, H, Sq, Sk), or a boolean (B, Sk) key mask (True = keep).
+    (B, H, Sq, Sk), or a boolean (B, Sk) key mask (True = keep). In
+    training the f32 attention weights take dropout, as in the JAX ``mha``.
     """
     dim = query.shape[-1]
     hd = dim // num_heads
@@ -94,7 +158,8 @@ def mha(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
             logits = logits.masked_fill(~mask[:, None, None, :], neg)
         else:
             logits = logits + mask.float()
-    weights = torch.softmax(logits, dim=-1)
+    weights = dropout(torch.softmax(logits, dim=-1), dropout_rate, training,
+                      generator)
     ctx = torch.matmul(weights.to(q.dtype).float(), v.float()).to(q.dtype)
     b, h, s, _ = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
@@ -166,7 +231,9 @@ class MultiheadAttention(nn.Module):
         self.out_proj = Linear(dim, dim, dtype=dtype, generator=generator)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, query, key, value, mask=None):
+    def forward(self, query, key, value, mask=None, dropout_rate=0.0,
+                training=False, generator=None):
         return mha(query, key, value, self.in_proj_weight, self.in_proj_bias,
                    self.out_proj.weight, self.out_proj.bias, self.num_heads,
-                   mask=mask)
+                   mask=mask, dropout_rate=dropout_rate, training=training,
+                   generator=generator)

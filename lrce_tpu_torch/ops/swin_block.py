@@ -1,5 +1,6 @@
 """K1 and K3: the whole Swin block (LN1 + window attention + proj + residual
-+ LN2 + MLP + residual) as one call, and its shifted form.
++ LN2 + MLP + residual) as one call, and its shifted form; K5, the MLP
+backward; and the block's backward.
 
 ``fused_swin_block`` (K1) replaces ``lrce_tpu/ops/pallas_swin_block.py``
 (``fused_swin_block`` / ``_block_kernel``): x comes pre-rolled, as in JAX.
@@ -11,25 +12,48 @@ gather and the proj scatter, so a shifted block costs no roll passes. On
 the model's path K1 runs the unshifted blocks of stages 0-2 and K3 (k = 1)
 the shifted ones.
 
+``mlp_bwd`` (K5) replaces ``_mlp_bwd_kernel`` / ``_mlp_bwd_impl``
+(``csrc/mlp_bwd.cu``): it recomputes LN2, fc1 and the GELU and returns the
+LN2-output cotangent and the MLP's weight gradients.
+
+K1 and K3 are ``torch.autograd.Function``s that save only their inputs, as
+``_block_fwd`` does. Their backward is ``_block_bwd``'s: recompute
+h1 = x + dp1 * K6(x), K5 on (h1, g, dp2) and the LN2 input backward, then
+K4 on dp1 * dh1 and the LN1 input backward. A shifted block passes its
+shift to K6 and K4, whose addressing does the roll, so K3's backward is the
+same code as K1's (``_pair_bwd`` re-traced rolls around the unfused ops).
+
 A tensor on the CPU goes through the plain PyTorch versions in this module,
-which have the kernel's rounding points; a CUDA tensor launches the kernel
-or raises. Nothing falls back.
+which have the kernels' rounding points, inside the same
+``autograd.Function``s; a CUDA tensor launches the kernel or raises.
+Nothing falls back.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from lrce_tpu_torch.ops import cuda_lib
-from lrce_tpu_torch.ops.nn import gelu, layer_norm
-from lrce_tpu_torch.ops.window_attn import (Window, attention_proj_f32,
+from lrce_tpu_torch.ops.nn import (gelu, layer_norm, layer_norm_input_bwd,
+                                   matmul_f32)
+from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Window,
+                                            attention_proj_f32, attention_vjp,
                                             check_attention_shapes,
-                                            check_kernel_args, expect_shape,
-                                            window_partition, window_reverse)
+                                            check_kernel_args, check_shift,
+                                            expect_shape,
+                                            fused_window_attention,
+                                            roll_shift, sm_count,
+                                            splitk_splits, window_partition,
+                                            window_reverse)
 
 Shift = Tuple[int, int, int]
+
+
+def _per_sample(dp: torch.Tensor, ndim: int) -> torch.Tensor:
+    return dp.reshape((-1,) + (1,) * (ndim - 1)).float()
 
 
 def swin_block_plain(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
@@ -47,10 +71,10 @@ def swin_block_plain(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
         a = (a.reshape(b, -1, c) * dp1.reshape(b, 1, 1).float()).reshape(a.shape)
     h1 = x + window_reverse(a.to(dt), window, b, d, h, w)
     z = layer_norm(h1, ln2s, ln2b, ln_eps)
-    hmid = gelu(torch.matmul(z, w1.t()).float() + b1.float()).to(dt)
-    out = torch.matmul(hmid, w2.t()).float() + b2.float()
+    hmid = gelu(matmul_f32(z, w1) + b1.float()).to(dt)
+    out = matmul_f32(hmid, w2) + b2.float()
     if dp2 is not None:
-        out = out * dp2.reshape(b, 1, 1, 1, 1).float()
+        out = out * _per_sample(dp2, 5)
     return (h1.float() + out).to(dt)
 
 
@@ -75,9 +99,128 @@ def swin_pair_plain(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
     return x
 
 
-def _launch_block(name, x, out, shift, ln1s, ln1b, qkv_w, qkv_b, proj_w,
-                  proj_b, rel_bias, mask, ln2s, ln2b, w1, b1, w2, b2, dp1, dp2,
-                  window, num_heads, ln_eps, ws) -> None:
+# ---------------------------------------------------------------------------
+# K5: the MLP backward
+# ---------------------------------------------------------------------------
+
+def _scale_g(g: torch.Tensor, dp2: Optional[torch.Tensor], dt) -> torch.Tensor:
+    g = g.to(dt)
+    if dp2 is None:
+        return g
+    return (g.float() * _per_sample(dp2, g.ndim)).to(dt)
+
+
+def mlp_bwd_plain(h1, g, ln2s, ln2b, w1, b1, w2,
+                  dp2: Optional[torch.Tensor], ln_eps: float = 1e-5):
+    """Plain version of K5, with ``_mlp_bwd_kernel``'s rounding points.
+
+    h1: the MLP half's input (B, D, H, W, C); g: the block output's
+    cotangent; dp2: (B,) multipliers or None. Returns (dz, dw1, db1, dw2,
+    db2): dz, the cotangent of the LN2 output, summed in f32 and rounded
+    once to h1's dtype; the rest f32 in nn.Linear layouts (w1 (FF, C),
+    w2 (C, FF)).
+    """
+    dt = h1.dtype
+    c = h1.shape[-1]
+    z = layer_norm(h1, ln2s, ln2b, ln_eps).reshape(-1, c)
+    g2 = _scale_g(g, dp2, dt).reshape(-1, c).float()
+    pre = matmul_f32(z, w1) + b1.float()
+    cdf = 0.5 * (1.0 + torch.erf(pre * (1.0 / math.sqrt(2.0))))
+    hid = (pre * cdf).to(dt).float()
+    dw2 = torch.matmul(g2.t(), hid)
+    db2 = g2.sum(0)
+    dhid = torch.matmul(g2, w2.float())
+    pdf = torch.exp(-0.5 * pre * pre) * (1.0 / math.sqrt(2.0 * math.pi))
+    dpre = dhid * (cdf + pre * pdf)
+    db1 = dpre.sum(0)
+    dpre = dpre.to(dt).float()
+    dw1 = torch.matmul(dpre.t(), z.float())
+    dz = torch.matmul(dpre, w1.float()).to(dt).reshape(h1.shape)
+    return dz, dw1, db1, dw2, db2
+
+
+def _mlp_bwd_kernel(h1, g, ln2s, ln2b, w1, b1, w2, dp2, ln_eps):
+    name = "mlp_bwd"
+    check_kernel_args(name, h1, (1, 1, 1), 1, (g, w1, w2),
+                      (ln2s, ln2b, b1, dp2))
+    b, d, h, w, c = h1.shape
+    ff = w1.shape[0]
+    expect_shape(name, g, h1.shape)
+    for t in (ln2s, ln2b):
+        expect_shape(name, t, (c,))
+    expect_shape(name, w1, (ff, c))
+    expect_shape(name, b1, (ff,))
+    expect_shape(name, w2, (c, ff))
+    expect_shape(name, dp2, (b,))
+    if ff % 64:
+        raise ValueError(f"{name}: MLP width {ff} is not a multiple of 64")
+    t = b * d * h * w
+    dev = h1.device
+    sms = sm_count(h1)
+    splits = max(splitk_splits(t, ff, c, sms), splitk_splits(t, c, ff, sms))
+
+    def bf(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dz = torch.empty_like(h1)
+    dw1, db1, dw2 = f32(ff, c), f32(ff), f32(c, ff)
+    g2 = bf(t, c)
+    w1t = w1.t().contiguous()        # (C, FF): dz = dpre . w1
+    w2t = w2.t().contiguous()        # (FF, C): dhid = g2 . w2
+    col_rows = -(-t // 128) * 4      # one row per (GEMM CTA, warp row)
+    ws = (bf(t, c), f32(t, ff), bf(t, ff), bf(t, ff), f32(col_rows, ff),
+          f32(splits, ff * c))
+    rc = cuda_lib.library().lib.lrce_mlp_bwd(
+        h1.data_ptr(), g.data_ptr(), b, d, h, w, c, ff, ln_eps,
+        ln2s.data_ptr(), ln2b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w1t.data_ptr(), w2t.data_ptr(),
+        None if dp2 is None else dp2.data_ptr(), dz.data_ptr(),
+        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), g2.data_ptr(),
+        *(t_.data_ptr() for t_ in ws), col_rows, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(name, rc)
+    mlp_bwd.launches += 1
+    db2 = g2.float().sum(0)          # sum g, outside the kernel as in JAX
+    return dz, dw1, db1, dw2, db2
+
+
+def mlp_bwd(h1, g, ln2s, ln2b, w1, b1, w2, dp2: Optional[torch.Tensor],
+            ln_eps: float = 1e-5):
+    """K5: the backward of out = h1 + dp2 * fc2(gelu(fc1(LN2 h1))) up to
+    the LN2 output, for the output cotangent g (see ``mlp_bwd_plain``). On
+    CUDA: h1, g, w1, w2 bf16; LN parameters, b1 and dp2 f32."""
+    if h1.device.type == "cpu":
+        return mlp_bwd_plain(h1, g, ln2s, ln2b, w1, b1, w2, dp2, ln_eps)
+    return _mlp_bwd_kernel(h1, g, ln2s, ln2b, w1, b1, w2, dp2, ln_eps)
+
+
+mlp_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The forward of one block
+# ---------------------------------------------------------------------------
+
+def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
+               ln_eps):
+    """One block: on the CPU the plain version between rolls by -shift and
+    +shift; on CUDA the kernel, the shift in its addressing, counted on
+    ``counted`` (``fused_swin_block`` or ``fused_swin_pair``). wts: the 13
+    block tensors ln1s ... b2, rel_bias at index 6; dp1, dp2: (B,) or
+    None."""
+    if x.device.type == "cpu":
+        y = swin_block_plain(roll_shift(x, shift, -1), *wts[:7], mask,
+                             *wts[7:], dp1, dp2, window, num_heads, ln_eps)
+        return roll_shift(y, shift, 1)
+    name = counted.__name__
+    ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, ln2s, ln2b, w1, b1, \
+        w2, b2 = wts
+    check_kernel_args(name, x, window, num_heads, (qkv_w, proj_w, w1, w2),
+                      (ln1s, ln1b, qkv_b, proj_b, rel_bias, mask, ln2s, ln2b,
+                       b1, b2, dp1, dp2))
     b, d, h, w, c = x.shape
     ff = w1.shape[0]
     check_attention_shapes(name, x, window, num_heads, qkv_w, qkv_b, proj_w,
@@ -91,8 +234,14 @@ def _launch_block(name, x, out, shift, ln1s, ln1b, qkv_w, qkv_b, proj_w,
     expect_shape(name, dp2, (b,))
     if ff % 8:
         raise ValueError(f"{name}: MLP width {ff} is not a multiple of 8")
-    if not all(0 <= v < n for v, n in zip(shift, (d, h, w))):
-        raise ValueError(f"{name}: shift {shift} outside dims {(d, h, w)}")
+    check_shift(name, x, shift)
+    t = b * d * h * w
+    out = torch.empty_like(x)
+    # scratch: (T, C) LN output / ctx, (T, max(3C, FF)) qkv / hidden,
+    # (T, C) h1
+    ws = (torch.empty((t, c), dtype=x.dtype, device=x.device),
+          torch.empty((t, max(3 * c, ff)), dtype=x.dtype, device=x.device),
+          torch.empty((t, c), dtype=x.dtype, device=x.device))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = cuda_lib.library().lib.lrce_swin_block_fwd(
         x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift,
@@ -102,14 +251,92 @@ def _launch_block(name, x, out, shift, ln1s, ln1b, qkv_w, qkv_b, proj_w,
         *(t.data_ptr() for t in ws),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(name, rc)
+    counted.launches += 1
+    return out
 
 
-def _workspace(x: torch.Tensor, ff: int):
-    b, d, h, w, c = x.shape
-    t = b * d * h * w
-    return (torch.empty((t, c), dtype=x.dtype, device=x.device),
-            torch.empty((t, max(3 * c, ff)), dtype=x.dtype, device=x.device),
-            torch.empty((t, c), dtype=x.dtype, device=x.device))
+# ---------------------------------------------------------------------------
+# The block backward (``_block_bwd``), shared by K1 and K3
+# ---------------------------------------------------------------------------
+
+def block_vjp(x, g, wts, mask, dp1, dp2, window, num_heads, ln_eps,
+              shift: Shift = NO_SHIFT):
+    """Gradients of one block for the output cotangent g: (dx, 13 weight
+    gradients in ``wts`` order). dp1 / dp2 get none."""
+    ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, ln2s, ln2b, w1, b1, \
+        w2, b2 = wts
+    dt = x.dtype
+    g = g.to(dt).contiguous()
+    with torch.no_grad():
+        a = fused_window_attention(x, ln1s, ln1b, qkv_w, qkv_b, proj_w,
+                                   proj_b, rel_bias, mask, window, num_heads,
+                                   ln_eps, shift)
+    if dp1 is not None:
+        a = (a.float() * _per_sample(dp1, a.ndim)).to(dt)
+    h1 = x + a
+    dz, dw1, db1, dw2, db2 = mlp_bwd(h1, g, ln2s, ln2b, w1, b1, w2, dp2,
+                                     ln_eps)
+    dh1_ln, dln2s, dln2b = layer_norm_input_bwd(h1, dz, ln2s, ln_eps)
+    dh1 = (g.float() + dh1_ln).to(dt)
+    ga = dh1 if dp1 is None else (dh1.float()
+                                  * _per_sample(dp1, dh1.ndim)).to(dt)
+    dx_a, dln1s, dln1b, dqkv_w, dqkv_b, dproj_w, dproj_b, drel = (
+        attention_vjp(x, ga, ln1s, ln1b, qkv_w, qkv_b, proj_w, rel_bias, mask,
+                      window, num_heads, ln_eps, shift))
+    dx = dh1 + dx_a
+    return dx, (dln1s, dln1b, dqkv_w, dqkv_b, dproj_w, dproj_b, drel,
+                dln2s.to(ln2s.dtype), dln2b.to(ln2b.dtype), dw1.to(w1.dtype),
+                db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def _run_blocks(counted, x, mask, dp1, dp2, window, num_heads, shifts, masked,
+                ln_eps, stacked):
+    """k consecutive blocks, block i with shifts[i], the weights stacked[.][i]
+    and the mask if masked[i]. Returns (output, the input of each block)."""
+    xs: List[torch.Tensor] = []
+    for blk, s in enumerate(shifts):
+        xs.append(x)
+        x = _one_block(counted, x, s, [t[blk] for t in stacked],
+                       mask if masked[blk] else None,
+                       None if dp1 is None else dp1[blk],
+                       None if dp2 is None else dp2[blk], window, num_heads,
+                       ln_eps)
+    return x, xs
+
+
+class _SwinBlocksFn(torch.autograd.Function):
+    """k consecutive blocks (shifts[i] per block) with per-block weights
+    stacked on a leading axis; K1 (k = 1, no shift) or K3. masked[i]: block
+    i adds the mask. Saves the inputs of each block (for k = 1, the inputs
+    only)."""
+
+    @staticmethod
+    def forward(ctx, counted, x, mask, dp1, dp2, window, num_heads, shifts,
+                masked, ln_eps, *stacked):
+        x, xs = _run_blocks(counted, x, mask, dp1, dp2, window, num_heads,
+                            shifts, masked, ln_eps, stacked)
+        ctx.save_for_backward(mask, dp1, dp2, *xs, *stacked)
+        ctx.cfg = (window, num_heads, tuple(shifts), masked, ln_eps)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        window, num_heads, shifts, masked, ln_eps = ctx.cfg
+        k = len(shifts)
+        mask, dp1, dp2, *rest = ctx.saved_tensors
+        xs, stacked = rest[:k], rest[k:]
+        grads = [[None] * k for _ in stacked]
+        for blk in reversed(range(k)):
+            s = shifts[blk]
+            g, gw = block_vjp(xs[blk], g, [t[blk] for t in stacked],
+                              mask if masked[blk] else None,
+                              None if dp1 is None else dp1[blk],
+                              None if dp2 is None else dp2[blk], window,
+                              num_heads, ln_eps, s)
+            for i, gi in enumerate(gw):
+                grads[i][blk] = gi
+        return (None, g, None, None, None, None, None, None, None, None,
+                *(torch.stack(gl) for gl in grads))
 
 
 def fused_swin_block(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
@@ -120,25 +347,23 @@ def fused_swin_block(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
 
     Weights in nn.Linear layout: qkv_w (3C, C), proj_w (C, C), w1 (FF, C),
     w2 (C, FF); LN parameters and biases f32. rel_bias (nH, N, N) f32. mask
-    (nd, nh, nw, N, N) f32, or None for an unshifted block. dp1, dp2: (B, 1)
-    f32 per-sample stochastic-depth multipliers, or None when inactive.
+    (nd, nh, nw, N, N) f32, or None for an unshifted block. dp1, dp2: (B,)
+    or (B, 1) f32 per-sample stochastic-depth multipliers, or None when
+    inactive. Differentiable: the backward is K6 + K5 + K4; with grad mode
+    off the block runs without the autograd.Function.
     """
-    if x.device.type == "cpu":
-        return swin_block_plain(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b,
-                                rel_bias, mask, ln2s, ln2b, w1, b1, w2, b2,
-                                dp1, dp2, window, num_heads, ln_eps)
-    name = "fused_swin_block"
-    check_kernel_args(name, x, window, num_heads, (qkv_w, proj_w, w1, w2),
-                      (ln1s, ln1b, qkv_b, proj_b, rel_bias, mask, ln2s, ln2b,
-                       b1, b2, dp1, dp2))
-    out = torch.empty_like(x)
-    flat = lambda t: None if t is None else t.reshape(-1)  # noqa: E731
-    _launch_block(name, x, out, (0, 0, 0), ln1s, ln1b, qkv_w, qkv_b, proj_w,
-                  proj_b, rel_bias, mask, ln2s, ln2b, w1, b1, w2, b2,
-                  flat(dp1), flat(dp2), window, num_heads, ln_eps,
-                  _workspace(x, w1.shape[0]))
-    fused_swin_block.launches += 1
-    return out
+    wts = (ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, ln2s, ln2b,
+           w1, b1, w2, b2)
+    if not torch.is_grad_enabled():
+        return _one_block(fused_swin_block, x, NO_SHIFT, wts, mask,
+                          None if dp1 is None else dp1.reshape(-1),
+                          None if dp2 is None else dp2.reshape(-1), window,
+                          num_heads, ln_eps)
+    d1 = None if dp1 is None else dp1.reshape(1, -1)
+    d2 = None if dp2 is None else dp2.reshape(1, -1)
+    return _SwinBlocksFn.apply(fused_swin_block, x, mask, d1, d2, window,
+                               num_heads, (NO_SHIFT,), (mask is not None,),
+                               ln_eps, *(t.unsqueeze(0) for t in wts))
 
 
 fused_swin_block.launches = 0
@@ -155,36 +380,25 @@ def fused_swin_pair(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
     Per-block weights are stacked on a leading k axis: ln1s (k, C), qkv_w
     (k, 3C, C), ..., rel_bias (k, nH, N, N). mask: (nd, nh, nw, N, N) f32,
     applied to the shifted blocks. dp1, dp2: (k, B) f32 or None. shifts:
-    (0, 0, 0) for W-MSA, the stage's shift for SW-MSA.
+    (0, 0, 0) for W-MSA, the stage's shift for SW-MSA. Each block launches
+    the kernel once. Differentiable: the backward is K6 + K5 + K4 per block.
     """
-    if x.device.type == "cpu":
-        return swin_pair_plain(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b,
-                               rel_bias, mask, ln2s, ln2b, w1, b1, w2, b2,
-                               dp1, dp2, window, num_heads, shifts, ln_eps)
-    name = "fused_swin_pair"
-    check_kernel_args(name, x, window, num_heads, (qkv_w, proj_w, w1, w2),
-                      (ln1s, ln1b, qkv_b, proj_b, rel_bias, mask, ln2s, ln2b,
-                       b1, b2, dp1, dp2))
     k = len(shifts)
     if k not in (1, 2) or any(t.shape[0] != k for t in (
             ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, ln2s, ln2b,
             w1, b1, w2, b2)):
-        raise ValueError(f"{name}: k = {k} shifts need weights stacked on a "
-                         "leading axis of k, and k must be 1 or 2")
-    ws = _workspace(x, w1.shape[1])
-    for blk, s in enumerate(shifts):
-        shifted = any(v != 0 for v in s)
-        out = torch.empty_like(x)
-        _launch_block(name, x, out, tuple(s), ln1s[blk], ln1b[blk], qkv_w[blk],
-                      qkv_b[blk], proj_w[blk], proj_b[blk], rel_bias[blk],
-                      mask if shifted else None, ln2s[blk], ln2b[blk],
-                      w1[blk], b1[blk], w2[blk], b2[blk],
-                      None if dp1 is None else dp1[blk],
-                      None if dp2 is None else dp2[blk], window, num_heads,
-                      ln_eps, ws)
-        x = out
-    fused_swin_pair.launches += 1
-    return x
+        raise ValueError(f"fused_swin_pair: k = {k} shifts need weights "
+                         "stacked on a leading axis of k, and k must be 1 "
+                         "or 2")
+    shifts = tuple(tuple(s) for s in shifts)
+    masked = tuple(any(s) for s in shifts)
+    stacked = (ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, ln2s, ln2b,
+               w1, b1, w2, b2)
+    if not torch.is_grad_enabled():
+        return _run_blocks(fused_swin_pair, x, mask, dp1, dp2, window,
+                           num_heads, shifts, masked, ln_eps, stacked)[0]
+    return _SwinBlocksFn.apply(fused_swin_pair, x, mask, dp1, dp2, window,
+                               num_heads, shifts, masked, ln_eps, *stacked)
 
 
 fused_swin_pair.launches = 0

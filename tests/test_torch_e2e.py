@@ -8,7 +8,8 @@ Tolerance 5e-4 (rtol and atol): the composed forward chains Swin (8
 blocks), BERT, and 12 fusion layers over 3 clips; the JAX package's own
 composed drift at this geometry is at most 1.4e-4 (README).
 
-Also: importing the port and running its slice never imports JAX.
+Also: importing the port (its training package included) and running its
+slice never imports JAX.
 """
 
 import os
@@ -104,7 +105,8 @@ def test_port_never_imports_jax():
         from lrce_tpu_torch import constants
         from lrce_tpu_torch.ops import cuda_lib, nn, swin_block, window_attn
         from lrce_tpu_torch.models import bert, e2e, embedding, fusion, swin3d
-        from lrce_tpu_torch.utils import convert
+        from lrce_tpu_torch.train import agent, losses, optimizer, schedule
+        from lrce_tpu_torch.utils import convert, pytree
         cfg = e2e.E2EConfig(
             feature_dim=36, num_classes=5, video_feature_dim=64,
             text_seq_len=8,
