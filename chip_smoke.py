@@ -9,33 +9,62 @@ Phases, each raising on failure (the script then exits non-zero):
   2. build: compiles lrce_tpu_torch/csrc for sm_90a (one nvcc per source,
      all at once) and prints the time;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
-     flagship shapes (bf16, 6 clips): K1, K3, K2 (forward); K6 with and
-     without the mask at stages 0-2, K4 at stages 0-3, K5 at stages 0-2
-     (every output: dy / dz, each dW, db and drel); then K6, K4 and K5
-     again at the train step's 48 clips, stages 0-3. Max-abs and
-     relative-L2 error against the stated tolerance, and kernel vs plain
-     time (CUDA events, after warm-up). Then the K1, K3 and K2
-     autograd.Functions' gradients against torch autograd through their
-     plain versions, one block per stage, at 6 and at 48 clips;
+     flagship shapes (bf16), at 6 clips (one request) and at the train
+     step's 48: K1, K3, K2 (forward); K6 with and without the mask at
+     stages 0-2, K4 at stages 0-3, K5 at stages 0-3 (every output: dy / dz,
+     each dW, db and drel); K7 at stage 3 (C = 1024) with and without dp2;
+     K8 at stage 0 (C = 128) without autograd. Max-abs and relative-L2
+     error against the stated tolerance; kernel and plain time (CUDA
+     events, after warm-up, order plain-kernel-kernel-plain) beside the
+     kernel's bound, the least time the card could take for the call, and
+     each kernel's sums over the calls of one step at 6 and at 48 clips. Then
+     the K1, K3, K2 and K7 autograd.Functions' gradients against torch
+     autograd through their plain versions, one block per stage, at 6 and
+     at 48 clips;
   4. forward: the flagship LRCEModel (Video Swin-B, BERT-base, 12-layer
      fusion, open-ended head, random weights from a seed) on the card in
      bf16 answers 3 requests of 2 questions x 3 clips x 5 x 224 x 224 uint8
      frames with 32 tokens. Logits must be finite, (2, 1000), agree with
      the same model run on the plain route, and each request must launch
-     K1 11 times, K3 11 times and K2 twice;
+     K1 11 times, K3 11 times and K2 twice. Then the same requests with the
+     stage-3 MLP routed through K7 (``ln_mlp=True``): K7 twice per request,
+     logits within the same limit of the plain route, the request time with
+     the route on and off taken in turns. Then K8 through its own entry
+     point, ``fused_mlp``, on each request's patch-embedded clips with the
+     first block's weights, against the model's own LN2 + MLP + residual;
   5. train: the flagship with f32 parameters and bf16 compute, AgentOE with
-     lrce_tpu's config defaults (lr 5e-6 for all three groups, reg 0.001),
+     the config defaults (lr 5e-6 for all three groups, reg 0.001),
      dropout 0.1 and drop-path 0.2 from a seeded generator, takes a warm-up
-     step and 4 steps at 16 questions x 3 clips (48 clips) of uint8 frames.
+     step and 2 steps at 16 questions x 3 clips (48 clips) of uint8 frames.
      Every step: a finite loss, parameters of all three groups changed, and
      the launches K1 11, K3 11, K2 2 (forward), K6 22, K5 22, K4 24
      (backward). Prints the step ms and the peak device memory;
-  6. route parity: one forward + backward at 2 questions, dropout and
+  6. training run: the same flagship with ``ln_mlp=True`` through the entry
+     a user of the trainer calls: an in-memory dataset made from a seed (64
+     train and 16 validation items of 3 x 5 x 224 x 224 x 3 uint8 clips, 32
+     token ids, a label), ``DataLoader`` -> ``device_prefetch`` ->
+     ``AgentOE.do_training`` for one epoch of 4 steps at 16 questions, a
+     validation mid-epoch and one at its end, checkpoints from the writer
+     thread into a temporary directory. Requires finite losses; per train
+     step K1 11, K3 11, K2 2, K7 2, K6 22, K5 24, K4 24 launches (per
+     validation step the forward four); ``best.pt`` and the epoch's
+     checkpoint on disk and no ``.tmp``; and that a fresh model loading
+     ``best.pt`` reproduces, through ``do_evaluation``, the validation loss
+     and metric recorded when it was saved (1e-6 relative);
+  7. route parity: one forward + backward at 2 questions, dropout and
      drop-path off, the same weights and batch, on the kernel route and on
      the plain route: loss and per-group gradient relative L2 (each Swin
      stage, BERT, the fusion) against the stated limit;
-  7. a JSON line of kernels, then the last line
+  8. a JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
+6-clip request (K1, K3, K2, K7; one call for K8) or the backward of one
+6-clip step (K6, K5, K4) makes. bound_ms is the larger of the call's
+operations over 989 TFLOP/s (dense bf16) and its bytes (each input read
+once, each output written once) over 3.35 TB/s, the H100 SXM's published
+peaks. library_ms is null: no single PyTorch call computes any of these
+fused functions.
 """
 
 from __future__ import annotations
@@ -43,8 +72,10 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -90,10 +121,18 @@ CALLS_PER_FORWARD = {"K1": (1, 1, 9, 0), "K3": (1, 1, 9, 0),
 # calls with the mask (the shifted blocks)
 CALLS_PER_BACKWARD = {"K6": (2, 2, 18, 0), "K5": (2, 2, 18, 0),
                       "K4": (2, 2, 18, 2)}
+# with the stage-3 MLP routed through K7 (ln_mlp=True): K7 once per stage-3
+# block forward, and K5 is its backward too
+LN_MLP_FORWARD = {**CALLS_PER_FORWARD, "K7": (0, 0, 0, 2)}
+LN_MLP_BACKWARD = {**CALLS_PER_BACKWARD, "K5": (2, 2, 18, 2)}
 TRAIN_BATCH = 16                # questions per step (tools/train_bench.py)
 TRAIN_CLIPS = TRAIN_BATCH * 3   # the Swin batch of a train step
-TRAIN_STEPS = 4
-KERNEL_ORDER = ("K1", "K3", "K2", "K6", "K5", "K4")
+TRAIN_STEPS = 2
+RUN_TRAIN_ITEMS, RUN_VAL_ITEMS = 64, 16     # the training run's dataset
+KERNEL_ORDER = ("K1", "K3", "K2", "K7", "K8", "K6", "K5", "K4")
+PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense
+PEAK_BYTES_PER_S = 3.35e12
+EVAL_REPRODUCE_REL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -187,6 +226,52 @@ def _compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_abs
 
 
+def _work(kernel: str, clips: int, stage: int, masked: bool = False,
+          with_dp: bool = False):
+    """(operations, bytes) of one call at a flagship stage: every matrix
+    product at 2 m n k, each input read once and each output written once
+    (bf16 activations and matrices, f32 LN parameters, biases, rel_bias,
+    mask, dp and weight gradients)."""
+    d, h, w, c, heads = STAGES[stage]
+    n = WINDOW[0] * WINDOW[1] * WINDOW[2]
+    t = clips * d * h * w
+    ff = 4 * c
+    act = t * c * 2
+    rel = heads * n * n * 4
+    mask = (d // WINDOW[0]) * (h // WINDOW[1]) * (w // WINDOW[2]) * n * n * 4 \
+        if masked else 0
+    attn_w = 4 * c * c * 2 + (3 * c + c + 2 * c) * 4    # qkv, proj, biases, LN1
+    mlp_w = 2 * c * ff * 2 + (2 * c + ff + c) * 4       # fc1, fc2, LN2, biases
+    dp = clips * 4 if with_dp else 0
+    attn_ops = t * (8 * c * c + 4 * n * c)      # qkv, q k^T, p v, proj
+    mlp_ops = 4 * t * c * ff                    # fc1, fc2
+    if kernel in ("K1", "K3"):
+        return (attn_ops + mlp_ops,
+                2 * act + attn_w + mlp_w + rel + mask + 2 * dp)
+    if kernel in ("K2", "K6"):
+        return attn_ops, 2 * act + attn_w + rel + mask
+    if kernel in ("K7", "K8"):
+        return mlp_ops, 2 * act + mlp_w + dp
+    if kernel == "K5":
+        # fc1 again, dhid, dW2, dW1, dz; in: h1, g, w1, w2; out: dz, dW1,
+        # db1, dW2 (f32)
+        return (10 * t * c * ff,
+                3 * act + mlp_w + dp + 2 * c * ff * 4 + ff * 4)
+    if kernel == "K4":
+        # qkv again, q k^T, p v, dctx, dWproj, dP, dV, dq, dk, dWqkv, dy
+        return (t * (22 * c * c + 12 * n * c),
+                3 * act + attn_w + rel + mask + 4 * c * c * 4 + 3 * c * 4
+                + rel)
+    raise KeyError(kernel)
+
+
+def _bound_ms(work):
+    ops_ms = work[0] / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = work[1] / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
 def _seeded(shape, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen)).cuda().bfloat16()
 
@@ -198,13 +283,23 @@ def phase_kernels():
 
     gen = torch.Generator().manual_seed(1234)
     n = WINDOW[0] * WINDOW[1] * WINDOW[2]
-    results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in KERNEL_ORDER}
+    from lrce_tpu_torch.ops import mlp as M
+
+    def totals():
+        return {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                    "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                    "gflop": 0.0, "mb": 0.0} for k in KERNEL_ORDER}
+
+    # sums over the calls of one request or backward at 6 clips (the kernels
+    # line) and of one train step at 48 clips
+    by_clips = {N_CLIPS: totals(), TRAIN_CLIPS: totals()}
     per_call = []
 
-    def record(kernel, calls, label, run_k, run_p, timed=None):
-        """Compare every output; time when ``timed`` (default: when the
-        6-clip step makes ``calls`` > 0 calls, which go into the totals)."""
+    def record(kernel, calls, label, run_k, run_p, work, timed=None):
+        """Compare every output; time when ``timed`` (default: when a step
+        at this clip count makes ``calls`` > 0 calls, which go into its
+        totals). work: the call's (operations, bytes), for its bound."""
+        results = by_clips[clips]
         got, want = run_k(), run_p()
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
@@ -217,18 +312,26 @@ def phase_kernels():
             return
         p1, k1, k2, p2 = (_cuda_time_ms(f) for f in (run_p, run_k, run_k, run_p))
         tk, tp = (k1 + k2) / 2, (p1 + p2) / 2
-        results[kernel]["ms"] += calls * tk
-        results[kernel]["plain_ms"] += calls * tp
-        per_call.append((kernel, label, tk, tp, calls))
-        where = (f"{calls} call(s) per forward or backward of a 6-clip step"
-                 if calls else "outside the 6-clip totals")
+        bound, by = _bound_ms(work)
+        r = results[kernel]
+        r["ms"] += calls * tk
+        r["plain_ms"] += calls * tp
+        r["bound_ms"] += calls * bound
+        r["ops_ms"] += calls * work[0] / PEAK_BF16_FLOPS * 1e3
+        r["bytes_ms"] += calls * work[1] / PEAK_BYTES_PER_S * 1e3
+        r["gflop"] += calls * work[0] / 1e9
+        r["mb"] += calls * work[1] / 1e6
+        per_call.append((kernel, label, tk, tp, calls, bound))
+        where = (f"{calls} call(s) per forward or backward of a {clips}-clip "
+                 "step" if calls else "outside the step's totals")
         print(f"[kernels] {kernel} {label}: kernel {tk:.4f} ms, plain "
-              f"{tp:.4f} ms per call; {where}", flush=True)
+              f"{tp:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{work[0] / 1e9:.3f} GFLOP, {work[1] / 1e6:.3f} MB) per call; "
+              f"{where}", flush=True)
 
-    # 6 clips (one request): every kernel, timed per 6-clip step. Then the
-    # train step's own shape, 48 clips (T = 451,584 tokens at stage 0), for
-    # the kernels only the train path runs: K6 and K4 with and without the
-    # mask, K5 with dp2, each held to its plain version and timed per call.
+    # 6 clips (one request), then the train step's own shape, 48 clips
+    # (T = 451,584 tokens at stage 0): every kernel held to its plain
+    # version, timed per call and summed over the calls of a step.
     for clips in (N_CLIPS, TRAIN_CLIPS):
         train_shape = clips != N_CLIPS
         for stage, (d, h, w, c, heads) in enumerate(STAGES):
@@ -240,55 +343,93 @@ def phase_kernels():
             attn = [p[k] for k in ATTN_KEYS]
             bwd = [p[k] for k in ("ln1s", "ln1b", "qkv_w", "qkv_b", "proj_w",
                                   "rel_bias")]
-            per_step = 0 if train_shape else 1     # into the 6-clip totals
+            dp = (torch.rand((clips,), generator=gen) < 0.8).float().cuda() / 0.8
+            mlp = [p[k] for k in MLP_KEYS]
             if stage == 3:
                 args = (x, *attn, None, WINDOW, heads)
-                if not train_shape:
-                    record("K2", CALLS_PER_FORWARD["K2"][stage], label,
-                           lambda: WA.fused_window_attention_hsplit(*args),
-                           lambda: WA.window_attention_plain(*args))
+                record("K2", CALLS_PER_FORWARD["K2"][stage], label,
+                       lambda: WA.fused_window_attention_hsplit(*args),
+                       lambda: WA.window_attention_plain(*args),
+                       _work("K2", clips, stage), timed=True)
                 k4 = (x, g, *bwd, None, WINDOW, heads, 1e-5, NO_SHIFT)
-                record("K4", per_step * CALLS_PER_BACKWARD["K4"][stage],
+                record("K4", CALLS_PER_BACKWARD["K4"][stage],
                        label, lambda: WA.window_attention_bwd(*k4),
-                       lambda: WA.window_attention_bwd_plain(*k4), timed=True)
+                       lambda: WA.window_attention_bwd_plain(*k4),
+                       _work("K4", clips, stage), timed=True)
+                # K7: without dp2 and without autograd, as a request runs
+                # it; with dp2 through the autograd.Function, as a train
+                # step does. K5 at C = 1024 is its backward.
+                for with_dp in (False, True):
+                    k7 = (x, *mlp, dp if with_dp else None, 1e-5)
+
+                    def run_k7():
+                        if with_dp:
+                            return SB.fused_ln_mlp(*k7)
+                        with torch.no_grad():
+                            return SB.fused_ln_mlp(*k7)
+
+                    record("K7", LN_MLP_FORWARD["K7"][stage]
+                           if with_dp == train_shape else 0,
+                           label + (" dp2" if with_dp else " no dp2"), run_k7,
+                           lambda: SB.ln_mlp_plain(*k7),
+                           _work("K7", clips, stage, with_dp=with_dp),
+                           timed=True)
+                k5 = (x, g, *mlp[:5], dp, 1e-5)
+                record("K5", LN_MLP_BACKWARD["K5"][stage],
+                       label + " dp2", lambda: SB.mlp_bwd(*k5),
+                       lambda: SB.mlp_bwd_plain(*k5),
+                       _work("K5", clips, stage, with_dp=True), timed=True)
                 del x, g
                 continue
             mask = torch.from_numpy(compute_shift_mask((d, h, w), WINDOW,
                                                        SHIFT))
             mask = mask.reshape(*nwin, n, n).cuda()
             half = CALLS_PER_FORWARD["K1"][stage]     # blocks of each kind
-            k1 = (x, *attn, None, *(p[k] for k in MLP_KEYS), None, None,
-                  WINDOW, heads)
-            if not train_shape:
-                record("K1", half, label, lambda: SB.fused_swin_block(*k1),
-                       lambda: SB.swin_block_plain(*k1))
-                q = _block_weights(c, heads, n, gen, 1)
-                k3 = (x, *(q[k] for k in ATTN_KEYS), mask,
-                      *(q[k] for k in MLP_KEYS), None, None, WINDOW, heads,
-                      (SHIFT,))
-                record("K3", half, label + " k=1",
-                       lambda: SB.fused_swin_pair(*k3),
-                       lambda: SB.swin_pair_plain(*k3))
+            k1 = (x, *attn, None, *mlp, None, None, WINDOW, heads)
+            record("K1", half, label,
+                   lambda: SB.fused_swin_block(*k1),
+                   lambda: SB.swin_block_plain(*k1),
+                   _work("K1", clips, stage), timed=True)
+            q = _block_weights(c, heads, n, gen, 1)
+            k3 = (x, *(q[k] for k in ATTN_KEYS), mask,
+                  *(q[k] for k in MLP_KEYS), None, None, WINDOW, heads,
+                  (SHIFT,))
+            record("K3", half, label + " k=1",
+                   lambda: SB.fused_swin_pair(*k3),
+                   lambda: SB.swin_pair_plain(*k3),
+                   _work("K3", clips, stage, masked=True), timed=True)
+            del q
+            if stage == 0:
+                # K8 at the shape it was written for, without autograd
+                k8 = (x, *mlp, 1e-5)
+
+                def run_k8():
+                    with torch.no_grad():
+                        return M.fused_mlp(*k8)
+
+                record("K8", 1, label, run_k8,
+                       lambda: M.fused_mlp_plain(*k8),
+                       _work("K8", clips, stage), timed=True)
             for masked in (False, True):
                 m, s = (mask, SHIFT) if masked else (None, NO_SHIFT)
                 tag = label + (" masked, shift (0,3,3)" if masked
                                else " unmasked")
                 k6 = (x, *attn, m, WINDOW, heads, 1e-5, s)
-                record("K6", per_step * half, tag,
+                record("K6", half, tag,
                        lambda: WA.fused_window_attention(*k6),
-                       lambda: WA.window_attention_plain(*k6), timed=True)
+                       lambda: WA.window_attention_plain(*k6),
+                       _work("K6", clips, stage, masked=masked), timed=True)
                 k4 = (x, g, *bwd, m, WINDOW, heads, 1e-5, s)
-                record("K4", per_step * half, tag,
+                record("K4", half, tag,
                        lambda: WA.window_attention_bwd(*k4),
-                       lambda: WA.window_attention_bwd_plain(*k4), timed=True)
-            dp = (torch.rand((clips,), generator=gen) < 0.8).float().cuda() / 0.8
+                       lambda: WA.window_attention_bwd_plain(*k4),
+                       _work("K4", clips, stage, masked=masked), timed=True)
             for with_dp in ((True,) if train_shape else (False, True)):
-                k5 = (x, g, *(p[k] for k in ("ln2s", "ln2b", "w1", "b1",
-                                              "w2")),
-                      dp if with_dp else None, 1e-5)
-                record("K5", per_step * 2 * half if with_dp else 0,
+                k5 = (x, g, *mlp[:5], dp if with_dp else None, 1e-5)
+                record("K5", 2 * half if with_dp else 0,
                        label + (" dp2" if with_dp else " no dp2"),
                        lambda: SB.mlp_bwd(*k5), lambda: SB.mlp_bwd_plain(*k5),
+                       _work("K5", clips, stage, with_dp=with_dp),
                        timed=with_dp)
             if stage == 0 and not train_shape:
                 # the rest of the contract, off the eval path: K1 with a mask
@@ -298,7 +439,8 @@ def phase_kernels():
                 k1m = k1[:8] + (mask,) + k1[9:15] + (dpv, 2.0 - dpv) + k1[17:]
                 record("K1", 0, label + " mask+dp",
                        lambda: SB.fused_swin_block(*k1m),
-                       lambda: SB.swin_block_plain(*k1m))
+                       lambda: SB.swin_block_plain(*k1m),
+                       _work("K1", clips, stage, True, True))
                 r = _block_weights(c, heads, n, gen, 2)
                 dp2 = ((torch.rand((2, N_CLIPS), generator=gen) < 0.8)
                        .float().cuda() / 0.8)
@@ -307,11 +449,22 @@ def phase_kernels():
                        heads, ((0, 0, 0), SHIFT))
                 record("K3", 0, label + " k=2 +dp",
                        lambda: SB.fused_swin_pair(*k3p),
-                       lambda: SB.swin_pair_plain(*k3p))
+                       lambda: SB.swin_pair_plain(*k3p),
+                       _work("K3", clips, stage, True, True))
             del x, g
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return results, per_call
+    for count, res in by_clips.items():
+        for k, r in res.items():
+            print(f"[kernels] {k}, the calls of one step at {count} clips: "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['gflop']:.3f} GFLOP, "
+                  f"{r['mb']:.3f} MB)", flush=True)
+    # an error found at either clip count counts for the kernel
+    for k, r in by_clips[N_CLIPS].items():
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               by_clips[TRAIN_CLIPS][k]["max_abs_err"])
+    return by_clips[N_CLIPS], per_call
 
 
 def _grads(fn, x, leaves, g):
@@ -322,16 +475,15 @@ def _grads(fn, x, leaves, g):
 
 
 def phase_function_grads():
-    """K1 / K3 / K2 autograd.Functions (backward K6 + K5 + K4, or K4) vs
-    torch autograd through their plain versions, one block per stage, at 6
-    clips and at the train step's 48."""
+    """K1 / K3 / K2 / K7 autograd.Functions (backward K6 + K5 + K4, K4, or
+    K5) vs torch autograd through their plain versions, one block per stage,
+    at 6 clips and at the train step's 48."""
     from lrce_tpu_torch.models.swin3d import compute_shift_mask
     from lrce_tpu_torch.ops import swin_block as SB
     from lrce_tpu_torch.ops import window_attn as WA
 
     gen = torch.Generator().manual_seed(4321)
     n = WINDOW[0] * WINDOW[1] * WINDOW[2]
-    names = ("x",) + ATTN_KEYS + MLP_KEYS
     for clips, (stage, (d, h, w, c, heads)) in itertools.product(
             (N_CLIPS, TRAIN_CLIPS), enumerate(STAGES)):
         x = _seeded((clips, d, h, w, c), gen)
@@ -340,10 +492,15 @@ def phase_function_grads():
         if stage == 3:
             p = _block_weights(c, heads, n, gen, None)
             leaves = [p[k] for k in ATTN_KEYS]
+            dp2 = ((torch.rand((clips,), generator=gen) < 0.8).float()
+                   .cuda() / 0.8)
             cases = [("K2", lambda f: lambda x_, ws: f(x_, *ws, None, WINDOW,
                                                        heads),
                       WA.fused_window_attention_hsplit,
-                      WA.window_attention_plain, leaves)]
+                      WA.window_attention_plain, leaves, ATTN_KEYS),
+                     ("K7", lambda f: lambda x_, ws: f(x_, *ws, dp2),
+                      SB.fused_ln_mlp, SB.ln_mlp_plain,
+                      [p[k] for k in MLP_KEYS], MLP_KEYS)]
         else:
             nwin = (d // WINDOW[0], h // WINDOW[1], w // WINDOW[2])
             mask = torch.from_numpy(compute_shift_mask(
@@ -356,16 +513,16 @@ def phase_function_grads():
                 ("K1", lambda f: lambda x_, ws: f(x_, *ws[:7], None, *ws[7:],
                                                   dp[0], dp[1], WINDOW, heads),
                  SB.fused_swin_block, SB.swin_block_plain,
-                 [p[k] for k in ATTN_KEYS + MLP_KEYS]),
+                 [p[k] for k in ATTN_KEYS + MLP_KEYS], ATTN_KEYS + MLP_KEYS),
                 ("K3", lambda f: lambda x_, ws: f(x_, *ws[:7], mask, *ws[7:],
                                                   dp[:1], dp[1:], WINDOW,
                                                   heads, (SHIFT,)),
                  SB.fused_swin_pair, SB.swin_pair_plain,
-                 [q[k] for k in ATTN_KEYS + MLP_KEYS])]
-        for kernel, wrap, fn_k, fn_p, leaves in cases:
+                 [q[k] for k in ATTN_KEYS + MLP_KEYS], ATTN_KEYS + MLP_KEYS)]
+        for kernel, wrap, fn_k, fn_p, leaves, keys in cases:
             got = _grads(wrap(fn_k), x, leaves, g)
             want = _grads(wrap(fn_p), x, leaves, g)
-            for name, a, b in zip(names, got, want):
+            for name, a, b in zip(("x",) + keys, got, want):
                 _compare(f"{kernel} autograd {label} d{name}", a, b,
                          GRAD_REL_L2, GRAD_MAX_ABS_REL)
         del x, g
@@ -373,13 +530,14 @@ def phase_function_grads():
 
 
 def _wrappers():
+    from lrce_tpu_torch.ops import mlp as M
     from lrce_tpu_torch.ops import swin_block as SB
     from lrce_tpu_torch.ops import window_attn as WA
 
     return {"K1": SB.fused_swin_block, "K3": SB.fused_swin_pair,
-            "K2": WA.fused_window_attention_hsplit,
-            "K6": WA.fused_window_attention, "K5": SB.mlp_bwd,
-            "K4": WA.window_attention_bwd}
+            "K2": WA.fused_window_attention_hsplit, "K7": SB.fused_ln_mlp,
+            "K8": M.fused_mlp, "K6": WA.fused_window_attention,
+            "K5": SB.mlp_bwd, "K4": WA.window_attention_bwd}
 
 
 def _reset_counts():
@@ -397,7 +555,7 @@ def phase_forward():
     per_forward = {k: sum(v) for k, v in CALLS_PER_FORWARD.items()}
     cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32)
     t0 = time.perf_counter()
-    model = LRCEModel(cfg, device="cuda", dtype=torch.bfloat16,
+    model = LRCEModel(cfg, dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(0)).eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -437,35 +595,93 @@ def phase_forward():
     for k, n in launches.items():
         require(n == per_forward[k] * len(requests),
                 f"{k} launched {n} times, expected {per_forward[k]} per request")
-    require(all(counts[k] == 0 for k in ("K6", "K5", "K4")),
-            "the eval forward launched a backward kernel")
+    require(all(counts[k] == 0 for k in ("K7", "K8", "K6", "K5", "K4")),
+            "the eval forward launched a kernel that is not on its route")
 
-    model.video_extractor.swin.use_kernels = False
+    swin = model.video_extractor.swin
+    swin.use_kernels = False
     e2e_forward(model, *requests[0])
     torch.cuda.synchronize()
     refs, lat_plain = serve("plain route")
-    for i, (out, ref) in enumerate(zip(outs, refs)):
-        require(tuple(out.shape) == (2, 1000), f"logits shape {tuple(out.shape)}")
-        require(bool(torch.isfinite(out).all()), "non-finite logits")
-        o, r = out.float(), ref.float()
-        rel_l2 = ((o - r).norm() / r.norm()).item()
-        max_abs = (o - r).abs().max().item()
-        top2 = r.topk(2, dim=-1).values
-        margin = (top2[:, 0] - top2[:, 1])
-        same = (o.argmax(-1) == r.argmax(-1))
-        # a prediction must agree wherever the plain route's top-2 margin
-        # is wider than twice the largest logit difference
-        decided = margin > 2 * max_abs
-        print(f"[forward] request {i}: rel_l2 {rel_l2:.4g} (limit "
-              f"{FORWARD_REL_L2}), max_abs {max_abs:.4g}, argmax equal "
-              f"{same.tolist()}, plain top-2 margins "
-              f"{[round(v, 4) for v in margin.tolist()]}", flush=True)
-        require(rel_l2 <= FORWARD_REL_L2, "kernel route disagrees with plain")
-        require(bool(same[decided].all()),
-                "argmax differs where the margin decides it")
+
+    def check(outs, label):
+        for i, (out, ref) in enumerate(zip(outs, refs)):
+            require(tuple(out.shape) == (2, 1000),
+                    f"logits shape {tuple(out.shape)}")
+            require(bool(torch.isfinite(out).all()), "non-finite logits")
+            o, r = out.float(), ref.float()
+            rel_l2 = ((o - r).norm() / r.norm()).item()
+            max_abs = (o - r).abs().max().item()
+            top2 = r.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1])
+            same = (o.argmax(-1) == r.argmax(-1))
+            # a prediction must agree wherever the plain route's top-2
+            # margin is wider than twice the largest logit difference
+            decided = margin > 2 * max_abs
+            print(f"[forward] {label}, request {i}: rel_l2 {rel_l2:.4g} "
+                  f"(limit {FORWARD_REL_L2}), max_abs {max_abs:.4g}, argmax "
+                  f"equal {same.tolist()}, plain top-2 margins "
+                  f"{[round(v, 4) for v in margin.tolist()]}", flush=True)
+            require(rel_l2 <= FORWARD_REL_L2,
+                    f"{label} disagrees with the plain route")
+            require(bool(same[decided].all()),
+                    "argmax differs where the margin decides it")
+
+    check(outs, "kernel route")
+
+    # the stage-3 MLP through K7, and its request time against the stock
+    # route's in turns: on (counted), off, off, on
+    swin.use_kernels, swin.ln_mlp = True, True
+    e2e_forward(model, *requests[0])
+    torch.cuda.synchronize()
+    _reset_counts()
+    outs7, lat_on = serve("kernel route + K7")
+    counts7 = _counts()
+    per_forward7 = {k: sum(v) for k, v in LN_MLP_FORWARD.items()}
+    print(f"[forward] launches over {len(requests)} requests with ln_mlp: "
+          f"{counts7}")
+    for k, n in counts7.items():
+        want = per_forward7.get(k, 0) * len(requests)
+        require(n == want, f"{k} launched {n} times with ln_mlp, expected "
+                f"{want}")
+    check(outs7, "kernel route + K7")
+    launches["K7"] = counts7["K7"]
+    swin.ln_mlp = False
+    lat_off = serve("kernel route, stock stage-3 MLP")[1]
+    lat_off += serve("kernel route, stock stage-3 MLP")[1]
+    swin.ln_mlp = True
+    lat_on = lat_on + serve("kernel route + K7")[1]
+    print(f"[forward] request ms, stage-3 MLP through K7 {np.mean(lat_on):.2f}"
+          f" (median {np.median(lat_on):.2f}), stock "
+          f"{np.mean(lat_off):.2f} (median {np.median(lat_off):.2f}), "
+          f"{len(lat_on)} requests each, in turns", flush=True)
+
+    # K8 through its own entry point: LN2 + MLP + residual of the first
+    # block on each request's patch-embedded clips, the model's weights
+    from lrce_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
+    from lrce_tpu_torch.models.swin3d import LN_EPS
+    from lrce_tpu_torch.ops.mlp import fused_mlp
+
+    blk = swin.layers[0].blocks[0]
+    mean = torch.tensor(IMAGENET_MEAN, dtype=model.dtype, device="cuda")
+    std = torch.tensor(IMAGENET_STD, dtype=model.dtype, device="cuda")
+    _reset_counts()
+    with torch.no_grad():
+        for i, req in enumerate(requests):
+            frames = ((req[0].float() / 255.0).to(model.dtype) - mean) / std
+            x = swin.patch_embed(frames.reshape(-1, *frames.shape[2:]))
+            got = fused_mlp(x, blk.norm2.weight, blk.norm2.bias,
+                            blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+                            blk.mlp.fc2.weight, blk.mlp.fc2.bias, LN_EPS)
+            _compare(f"K8 fused_mlp on request {i} {tuple(x.shape)} vs the "
+                     "model's LN2 + MLP + residual", got,
+                     x + blk.mlp(blk.norm2(x)))
+    launches["K8"] = _counts()["K8"]
+    require(launches["K8"] == len(requests),
+            f"K8 launched {launches['K8']} times, expected one per request")
     del model
     torch.cuda.empty_cache()
-    return launches, lat_kernels, lat_plain
+    return launches, lat_kernels, lat_plain, lat_on, lat_off
 
 
 def _train_batch(rng, questions: int):
@@ -478,22 +694,23 @@ def _train_batch(rng, questions: int):
     return clips, ids, mask, types, gt
 
 
-def _flagship_train_model():
+def _flagship_train_model(ln_mlp: bool = False, seed: int = 0):
     from lrce_tpu_torch.models.e2e import E2EConfig, LRCEModel
 
     cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32)
-    return LRCEModel(cfg, device="cuda", dtype=torch.float32,
-                     compute_dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(0))
+    return LRCEModel(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(seed),
+                     ln_mlp=ln_mlp)
 
 
 def phase_train():
     from lrce_tpu_torch.train.agent import AgentOE, default_args
 
-    per_step = {k: sum(v) for k, v in {**CALLS_PER_FORWARD,
-                                       **CALLS_PER_BACKWARD}.items()}
+    per_step = {"K7": 0, "K8": 0,
+                **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
+                                          **CALLS_PER_BACKWARD}.items()}}
     model = _flagship_train_model()
-    agent = AgentOE(model, default_args(), seed=0)
+    agent = AgentOE(model, default_args(), log_enabled=False, seed=0)
     print(f"[train] flagship, f32 parameters, bf16 compute; lr {agent.lrs}, "
           f"reg {agent.reg_strength}, dropout {model.cfg.drop_out_rate}, "
           f"drop-path {model.cfg.swin.drop_path_rate}", flush=True)
@@ -544,6 +761,164 @@ def phase_train():
     del agent, model
     torch.cuda.empty_cache()
     return totals, times, peak
+
+
+class _SyntheticQA:
+    """An in-memory VideoQA dataset made from a seed: item i is (uint8 clips
+    (3, 5, 224, 224, 3), 32 token ids, attention mask, type ids, label)."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.clips, self.ids, self.mask, self.types, self.gt = _train_batch(
+            rng, n)
+
+    def __len__(self) -> int:
+        return len(self.gt)
+
+    def __getitem__(self, i: int):
+        return (self.clips[i], self.ids[i], self.mask[i], self.types[i],
+                self.gt[i])
+
+
+def phase_training_run():
+    """One epoch through DataLoader -> device_prefetch -> do_training, the
+    stage-3 MLP through K7, checkpoints from the writer thread; then
+    ``best.pt`` reloaded into a fresh model must reproduce its validation."""
+    from lrce_tpu_torch.data.loader import DataLoader
+    from lrce_tpu_torch.train.agent import AgentOE, default_args
+
+    train_step = {"K8": 0, **{k: sum(v) for k, v in {
+        **LN_MLP_FORWARD, **LN_MLP_BACKWARD}.items()}}
+    eval_step = {**{k: 0 for k in train_step},
+                 **{k: sum(v) for k, v in LN_MLP_FORWARD.items()}}
+    train_dl = DataLoader(_SyntheticQA(RUN_TRAIN_ITEMS, 21), TRAIN_BATCH,
+                          shuffle=True, seed=0, num_workers=2)
+    val_dl = DataLoader(_SyntheticQA(RUN_VAL_ITEMS, 22), TRAIN_BATCH,
+                        shuffle=False, num_workers=2)
+    n_steps = len(train_dl)
+    require(n_steps == 4 and len(val_dl) == 1, "the run is 4 steps + 1 val")
+
+    with tempfile.TemporaryDirectory(prefix="lrce_smoke_") as log_dir:
+        model = _flagship_train_model(ln_mlp=True)
+        args = default_args(epoch=1, ckpt_interval=1, log_dir=log_dir,
+                            async_checkpoint=True)
+        agent = AgentOE(model, args, seed=0)
+        print(f"[run] flagship, ln_mlp=True, f32 parameters, bf16 compute; "
+              f"{RUN_TRAIN_ITEMS} train / {RUN_VAL_ITEMS} validation items, "
+              f"batch {TRAIN_BATCH}, lr {agent.lrs}, async_checkpoint "
+              f"{args.async_checkpoint}, TensorBoard "
+              f"{agent.summary_writer is not None}; log dir made by the agent",
+              flush=True)
+
+        steps = []      # (is_train, counts, start event, end event)
+        real_dispatch = agent.dispatch
+
+        def dispatch(*batch, is_train):
+            require(all(torch.is_tensor(b) and b.is_cuda for b in batch),
+                    "a batch reached the step without device_prefetch")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            _reset_counts()
+            start.record()
+            out = real_dispatch(*batch, is_train=is_train)
+            end.record()
+            steps.append((is_train, _counts(), start, end))
+            return out
+
+        agent.dispatch = dispatch
+        validations = []    # (epoch, loss, metric) at each validation
+        real_better = agent.is_metric_val_better
+
+        def is_better(epoch=None):
+            better = real_better(epoch)
+            validations.append((epoch, agent.last_loss, agent.last_metric_val,
+                                better))
+            return better
+
+        agent.is_metric_val_better = is_better
+        save_ms = []        # what the loop pays for each (async) save
+        real_save = agent.save_checkpoint
+
+        def save_checkpoint(*a, **k):
+            t = time.perf_counter()
+            real_save(*a, **k)
+            save_ms.append((time.perf_counter() - t) * 1e3)
+
+        agent.save_checkpoint = save_checkpoint
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        agent.do_training(train_dl, val_dl, eval_per_epoch=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        totals = {k: 0 for k in train_step}
+        step_ms = []
+        for is_train, counts, start, end in steps:
+            want = train_step if is_train else eval_step
+            for k, n in want.items():
+                require(counts[k] == n, f"{k} launched {counts[k]} times in a "
+                        f"{'train' if is_train else 'validation'} step of the "
+                        f"run, expected {n}")
+                totals[k] += counts[k]
+            if is_train:
+                step_ms.append(start.elapsed_time(end))
+        n_train = sum(1 for st in steps if st[0])
+        require(n_train == n_steps and len(steps) == n_steps + 2,
+                f"the run took {n_train} train and {len(steps) - n_train} "
+                "validation steps, expected 4 and 2")
+        require(len(validations) == 2, "expected two validations")
+        for v in validations:
+            require(math.isfinite(v[1]), f"non-finite validation loss {v[1]}")
+        require(math.isfinite(agent.last_train_loss),
+                f"non-finite train loss {agent.last_train_loss}")
+        print(f"[run] epoch of {n_steps} steps + 2 validations + checkpoints: "
+              f"{wall:.2f} s wall; train steps on the device (events around "
+              f"each dispatch) ms {', '.join(f'{t:.1f}' for t in step_ms)}; "
+              f"host ms inside each save_checkpoint call (the snapshot, and "
+              f"the join of the writer before it) "
+              f"{', '.join(f'{t:.1f}' for t in save_ms)}; "
+              f"train loss {agent.last_train_loss:.5f}; validations (epoch, "
+              f"loss, metric, better) {validations}; peak device memory "
+              f"{peak:.2f} GiB; launches per train step {steps[0][1]}, over "
+              f"the run {totals}", flush=True)
+
+        files = sorted(os.listdir(args.ckpt_dir))
+        print(f"[run] {args.ckpt_dir.replace(log_dir, '<log dir>')}: "
+              f"{[(f, os.path.getsize(os.path.join(args.ckpt_dir, f))) for f in files]}",
+              flush=True)
+        require(agent._ckpt_thread is None, "a checkpoint writer is still up")
+        require(not [f for f in files if f.endswith(".tmp")],
+                f"a .tmp file was left: {files}")
+        require("best.pt" in files, f"no best.pt in {files}")
+        require(any(f.startswith("epoch01_loss") for f in files),
+                f"no epoch checkpoint in {files}")
+        require(os.path.isfile(os.path.join(args.log_dir, "config.json")),
+                "no config.json")
+
+        # best.pt was written at the first validation that improved
+        recorded = [v for v in validations if v[3]][-1]
+        del agent, model
+        torch.cuda.empty_cache()
+        fresh = AgentOE(_flagship_train_model(ln_mlp=True, seed=5),
+                        default_args(), log_enabled=False, is_eval=True)
+        fresh.load_checkpoint(os.path.join(args.ckpt_dir, "best.pt"))
+        fresh.do_evaluation(val_dl)
+        rel = abs(fresh.last_loss - recorded[1]) / abs(recorded[1])
+        print(f"[run] best.pt reloaded: validation loss {fresh.last_loss:.8f} "
+              f"vs recorded {recorded[1]:.8f} (relative {rel:.3g}, limit "
+              f"{EVAL_REPRODUCE_REL}), metric {fresh.last_metric_val} vs "
+              f"{recorded[2]}", flush=True)
+        require(rel <= EVAL_REPRODUCE_REL,
+                "best.pt does not reproduce its validation loss")
+        require(abs(fresh.last_metric_val - recorded[2])
+                <= EVAL_REPRODUCE_REL * max(abs(recorded[2]), 1.0),
+                "best.pt does not reproduce its validation metric")
+        del fresh
+        torch.cuda.empty_cache()
+    return totals, step_ms, wall, peak
 
 
 def phase_route_parity():
@@ -606,6 +981,10 @@ SOURCES = {
            "lrce_tpu/ops/pallas_swin_pair.py:300"),
     "K2": ("fused_window_attention_hsplit", "lrce_tpu_torch/csrc/window_attn.cu",
            "lrce_tpu/ops/pallas_window_attn.py:820"),
+    "K7": ("fused_ln_mlp", "lrce_tpu_torch/csrc/ln_mlp.cu",
+           "lrce_tpu/ops/pallas_swin_block.py:544"),
+    "K8": ("fused_mlp", "lrce_tpu_torch/csrc/ln_mlp.cu",
+           "lrce_tpu/ops/pallas_mlp.py:86"),
     "K6": ("fused_window_attention", "lrce_tpu_torch/csrc/window_attn.cu",
            "lrce_tpu/ops/pallas_window_attn.py:254"),
     "K5": ("mlp_bwd", "lrce_tpu_torch/csrc/mlp_bwd.cu",
@@ -621,22 +1000,38 @@ def main() -> int:
     lib = phase_build()
     results, per_call = phase_kernels()
     phase_function_grads()
-    fwd_launches, lat_k, lat_p = phase_forward()
+    fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
     train_launches, step_ms, peak = phase_train()
+    run_launches, run_step_ms, run_wall, run_peak = phase_training_run()
     worst = phase_route_parity()
-    launches = {**{k: fwd_launches[k] for k in ("K1", "K3", "K2")},
-                **{k: train_launches[k] for k in ("K6", "K5", "K4")}}
-    kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
-                "replaces": SOURCES[k][2], "launches": launches[k],
-                "max_abs_err": results[k]["max_abs_err"],
-                "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
-               for k in KERNEL_ORDER]
+    # the forward kernels from the serving requests, K8 from its own entry
+    # point, the backward kernels from the training run; every kernel of
+    # the run's path must have launched there
+    for k in ("K1", "K3", "K2", "K7", "K6", "K5", "K4"):
+        require(run_launches[k] > 0 and (k == "K7" or train_launches[k] > 0),
+                f"{k} never launched on the training path")
+    launches = {**fwd_launches,
+                **{k: run_launches[k] for k in ("K6", "K5", "K4")}}
+    kernels = []
+    for k in KERNEL_ORDER:
+        r = results[k]
+        require(launches[k] > 0, f"{k} never launched on its path")
+        kernels.append({
+            "name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
+            "replaces": SOURCES[k][2], "launches": launches[k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes"),
+            "library_ms": None})
     print(f"[summary] {card}; build {lib.build_seconds:.1f} s; request "
-          f"latency ms kernel route {lat_k}, plain route {lat_p}; train step "
-          f"ms {step_ms} at {TRAIN_CLIPS} clips, peak {peak:.2f} GiB; "
+          f"latency ms kernel route {lat_k}, plain route {lat_p}, with K7 "
+          f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "
+          f"{TRAIN_CLIPS} clips, peak {peak:.2f} GiB; training run "
+          f"{run_wall:.2f} s, step ms {run_step_ms}, peak {run_peak:.2f} GiB; "
           f"route parity worst gradient rel L2 {worst:.4g}; per call "
-          f"(kernel ms, plain ms, calls) "
-          f"{[(k, l, round(a, 4), round(b, 4), c) for k, l, a, b, c in per_call]}"
+          f"(kernel ms, plain ms, calls, bound ms) "
+          f"{[(k, l, round(a, 4), round(b, 4), c, round(d, 4)) for k, l, a, b, c, d in per_call]}"
           f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,8 @@ Module names are the reference's (``fusion_model``, ``text_extractor.bert``,
 checkpoint.
 
     model = LRCEModel(E2EConfig(num_classes=1000, temporal_scale=(3,),
-                                text_seq_len=32), device="cuda",
-                      dtype=torch.float32, compute_dtype=torch.bfloat16)
+                                text_seq_len=32), dtype=torch.float32,
+                      compute_dtype=torch.bfloat16)    # on the card
     logits = e2e_forward(model, clips, ids, mask, types)
     gen = torch.Generator(device="cuda").manual_seed(0)
     loss = f(e2e_apply(model, clips, ids, mask, types, training=True,
@@ -36,6 +36,7 @@ from lrce_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from lrce_tpu_torch.models import bert as B
 from lrce_tpu_torch.models import swin3d as S
 from lrce_tpu_torch.models.fusion import LRCEHead
+from lrce_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class E2EConfig(NamedTuple):
@@ -60,22 +61,27 @@ class TextExtractor(nn.Module):
 
 
 class VideoExtractor(nn.Module):
-    def __init__(self, cfg: S.SwinConfig, dtype, generator):
+    def __init__(self, cfg: S.SwinConfig, dtype, generator, ln_mlp):
         super().__init__()
-        self.swin = S.SwinTransformer3D(cfg, dtype=dtype, generator=generator)
+        self.swin = S.SwinTransformer3D(cfg, dtype=dtype, generator=generator,
+                                        ln_mlp=ln_mlp)
 
 
 class LRCEModel(nn.Module):
-    """The whole model on ``device``. Weight matrices are held in ``dtype``
-    and the activations computed in ``compute_dtype`` (default: ``dtype``);
-    LayerNorm parameters, biases, embeddings and position tables stay f32.
-    Random weights come from ``generator``, or from a generator seeded
-    with 0."""
+    """The whole model on ``device``: the card unless the caller asks for
+    the CPU, and an error when there is no card. Weight matrices are held
+    in ``dtype`` and the activations computed in ``compute_dtype`` (default:
+    ``dtype``); LayerNorm parameters, biases, embeddings and position
+    tables stay f32. Random weights come from ``generator``, or from a
+    generator seeded with 0. ``ln_mlp``: the Swin tower's stage-3 LN2 + MLP
+    through K7 (``SwinTransformer3D``)."""
 
-    def __init__(self, cfg: E2EConfig, *, device="cpu", dtype=torch.float32,
-                 compute_dtype=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: E2EConfig, *, device=DEFAULT_DEVICE,
+                 dtype=torch.float32, compute_dtype=None,
+                 generator: Optional[torch.Generator] = None,
+                 ln_mlp: bool = False):
         super().__init__()
+        device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
@@ -87,7 +93,8 @@ class LRCEModel(nn.Module):
             dtype, generator, cfg.drop_out_rate)
         self.text_extractor = TextExtractor(cfg.bert, dtype, generator,
                                             self.dtype)
-        self.video_extractor = VideoExtractor(cfg.swin, dtype, generator)
+        self.video_extractor = VideoExtractor(cfg.swin, dtype, generator,
+                                              ln_mlp)
         self.to(device)
 
 

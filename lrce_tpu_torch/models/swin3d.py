@@ -14,8 +14,10 @@ Two routes through a stage, chosen by ``SwinTransformer3D.use_kernels``:
     (``fused_swin_block``) and shifted blocks K3 (``fused_swin_pair`` with
     k = 1, the shift inside the kernel); at C > 512 (stage 3) the attention
     runs K2 (``fused_window_attention_hsplit``) and LN2 + MLP + residual
-    stay plain, as the JAX package leaves them to XLA. Stages that need
-    padding take the plain block;
+    stay plain, as the JAX package leaves them to XLA, unless ``ln_mlp`` is
+    set: then they run K7 (``fused_ln_mlp``), the JAX package's
+    ``LRCE_TPU_LNMLP`` route as an explicit argument, off by default as
+    there. Stages that need padding take the plain block;
   - plain: every block is ``swin_block``, the JAX package's XLA path (pad,
     roll, partition, attention, reverse, unroll, crop, MLP).
 On a CPU tensor a kernel wrapper runs its own plain version, so both
@@ -42,7 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lrce_tpu_torch.ops.nn import LayerNorm, Linear, gelu, trunc_normal
-from lrce_tpu_torch.ops.swin_block import fused_swin_block, fused_swin_pair
+from lrce_tpu_torch.ops.swin_block import (fused_ln_mlp, fused_swin_block,
+                                            fused_swin_pair)
 from lrce_tpu_torch.ops.window_attn import (fused_window_attention_hsplit,
                                             window_partition, window_reverse)
 
@@ -310,8 +313,10 @@ class BasicLayer(nn.Module):
     def forward(self, x: torch.Tensor, use_kernels: bool,
                 consts: "DeviceConstants",
                 dp_rates: Optional[Sequence[float]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """dp_rates: the blocks' drop-path rates in training, else None."""
+                generator: Optional[torch.Generator] = None,
+                ln_mlp: bool = False) -> torch.Tensor:
+        """dp_rates: the blocks' drop-path rates in training, else None;
+        ln_mlp: at C > ``BLOCK_KERNEL_MAX_C`` run LN2 + MLP through K7."""
         b, d, h, w, c = x.shape
         window, shift = get_window_size(
             (d, h, w), self.window_size, tuple(s // 2 for s in self.window_size))
@@ -356,7 +361,10 @@ class BasicLayer(nn.Module):
                 if m is not None:
                     y = torch.roll(y, tuple(s), (1, 2, 3))
                 x = x + drop_path(y, dp1)
-                x = x + drop_path(blk.mlp(blk.norm2(x)), dp2)
+                if ln_mlp:
+                    x = fused_ln_mlp(x, *wts[6:], dp2, LN_EPS)
+                else:
+                    x = x + drop_path(blk.mlp(blk.norm2(x)), dp2)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -388,10 +396,15 @@ class SwinTransformer3D(nn.Module):
     """(B, D, H, W, 3) channels-last video -> (B, D', H/32, W/32, 8*embed_dim)."""
 
     def __init__(self, cfg: SwinConfig = SWIN_BASE, *, dtype=torch.float32,
-                 generator: torch.Generator, use_kernels: bool = True):
+                 generator: torch.Generator, use_kernels: bool = True,
+                 ln_mlp: bool = False):
+        """use_kernels: the kernel route; ln_mlp: on the kernel route, the
+        stage-3 LN2 + MLP + residual through K7 (``fused_ln_mlp``) instead
+        of the plain ops."""
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.ln_mlp = ln_mlp
         self.consts = DeviceConstants()
         n_stages = len(cfg.depths)
         self.patch_embed = PatchEmbed3D(cfg, dtype, generator)
@@ -412,6 +425,6 @@ class SwinTransformer3D(nn.Module):
         for layer, depth in zip(self.layers, depths):
             x = layer(x, self.use_kernels, self.consts,
                       rates[offset:offset + depth] if training else None,
-                      generator)
+                      generator, self.ln_mlp)
             offset += depth
         return self.norm(x)

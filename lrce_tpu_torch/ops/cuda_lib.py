@@ -24,7 +24,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("swin_common.cu", "swin_block.cu", "window_attn.cu",
-           "attn_bwd.cu", "mlp_bwd.cu")
+           "attn_bwd.cu", "mlp_bwd.cu", "ln_mlp.cu")
 HEADERS = ("swin_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "lrce_mlp_bwd": (
         [_P, _P] + [_I] * 6 + [_F] + [_P] * 7 + [_P] * 5 + [_P] * 6
         + [_I, _I, _P]),
+    "lrce_ln_mlp_fwd": (
+        [_P, _P] + [_I] * 5 + [_F] + [_P] * 7 + [_P] * 2 + [_P]),
 }
 
 

@@ -16,6 +16,12 @@ the shifted ones.
 (``csrc/mlp_bwd.cu``): it recomputes LN2, fc1 and the GELU and returns the
 LN2-output cotangent and the MLP's weight gradients.
 
+``fused_ln_mlp`` (K7) replaces ``_ln_mlp_kernel`` / ``_ln_mlp_fwd_impl``
+(``csrc/ln_mlp.cu``): LN2 + MLP + residual as one call at any C <= 1024, the
+stage-3 route of the Swin tower (C = 1024); its backward is K5 and the LN2
+input backward, as ``_ln_mlp_bwd``. ``ops/mlp.py`` (K8) runs the same entry
+without dp2.
+
 K1 and K3 are ``torch.autograd.Function``s that save only their inputs, as
 ``_block_fwd`` does. Their backward is ``_block_bwd``'s: recompute
 h1 = x + dp1 * K6(x), K5 on (h1, g, dp2) and the LN2 input backward, then
@@ -198,6 +204,130 @@ def mlp_bwd(h1, g, ln2s, ln2b, w1, b1, w2, dp2: Optional[torch.Tensor],
 
 
 mlp_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: LN2 + MLP + residual
+# ---------------------------------------------------------------------------
+
+# The bf16 hidden of one row slab: small enough to stay in the H100's 50 MB
+# L2 between fc1's store and fc2's load.
+HIDDEN_SLAB_BYTES = 16 * 2 ** 20
+
+
+def ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2,
+                 dp2: Optional[torch.Tensor], ln_eps: float = 1e-5):
+    """Plain version of K7 (and, with dp2 None, of K8), with
+    ``_ln_mlp_kernel``'s rounding points: LN2 in f32, rounded; fc1 + b1 and
+    the exact-erf GELU in f32, the hidden rounded; fc2 + b2 in f32, times
+    the sample's dp2, + h1 in f32, rounded once.
+
+    h1: (B, D, H, W, C); w1 (FF, C), w2 (C, FF) in nn.Linear layout; dp2:
+    (B,) or (B, 1) f32 multipliers or None."""
+    dt = h1.dtype
+    z = layer_norm(h1, ln2s, ln2b, ln_eps)
+    hid = gelu(matmul_f32(z, w1) + b1.float()).to(dt)
+    out = matmul_f32(hid, w2) + b2.float()
+    if dp2 is not None:
+        out = out * _per_sample(dp2, h1.ndim)
+    return (h1.float() + out).to(dt)
+
+
+def mlp_slab_rows(t: int, ff: int, tokens_per_sample: int,
+                  with_dp: bool) -> int:
+    """Rows of one slab of the K7 / K8 kernel: as many as keep the bf16
+    hidden (rows, FF) within ``HIDDEN_SLAB_BYTES``; whole samples when a
+    per-sample dp2 is given (the kernel indexes dp2 from the slab's first
+    row), else whole 128-row GEMM tiles."""
+    rows = max(128, HIDDEN_SLAB_BYTES // (2 * ff))
+    if with_dp:
+        rows = max(1, rows // tokens_per_sample) * tokens_per_sample
+    else:
+        rows = rows // 128 * 128
+    return min(t, rows)
+
+
+def ln_mlp_forward(counted, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
+    """The plain version on the CPU; on CUDA the kernel
+    (``csrc/ln_mlp.cu``), counted on ``counted`` (``fused_ln_mlp`` or
+    ``ops.mlp.fused_mlp``). dp2: (B,) f32 or None."""
+    if h1.device.type == "cpu":
+        return ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps)
+    name = counted.__name__
+    check_kernel_args(name, h1, (1, 1, 1), 1, (w1, w2),
+                      (ln2s, ln2b, b1, b2, dp2))
+    b, d, h, w, c = h1.shape
+    ff = w1.shape[0]
+    for t in (ln2s, ln2b, b2):
+        expect_shape(name, t, (c,))
+    expect_shape(name, w1, (ff, c))
+    expect_shape(name, b1, (ff,))
+    expect_shape(name, w2, (c, ff))
+    expect_shape(name, dp2, (b,))
+    if ff % 8:
+        raise ValueError(f"{name}: MLP width {ff} is not a multiple of 8")
+    tokens = d * h * w
+    t = b * tokens
+    slab = mlp_slab_rows(t, ff, tokens, dp2 is not None)
+    out = torch.empty_like(h1)
+    ws_z = torch.empty((slab, c), dtype=h1.dtype, device=h1.device)
+    ws_hid = torch.empty((slab, ff), dtype=h1.dtype, device=h1.device)
+    rc = cuda_lib.library().lib.lrce_ln_mlp_fwd(
+        h1.data_ptr(), out.data_ptr(), t, c, ff, tokens, slab, ln_eps,
+        ln2s.data_ptr(), ln2b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(),
+        None if dp2 is None else dp2.data_ptr(), ws_z.data_ptr(),
+        ws_hid.data_ptr(), torch.cuda.current_stream(h1.device).cuda_stream)
+    cuda_lib.check(name, rc)
+    counted.launches += 1
+    return out
+
+
+class _LnMlpFn(torch.autograd.Function):
+    """K7 forward; backward K5 + the LN2 input backward, dh1 = g + dh1_ln,
+    as ``_ln_mlp_bwd``. Saves only the inputs; dp2 gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
+        ctx.save_for_backward(h1, ln2s, ln2b, w1, b1, w2, b2, dp2)
+        ctx.ln_eps = ln_eps
+        return ln_mlp_forward(fused_ln_mlp, h1, ln2s, ln2b, w1, b1, w2, b2,
+                              dp2, ln_eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        h1, ln2s, ln2b, w1, b1, w2, b2, dp2 = ctx.saved_tensors
+        dt = h1.dtype
+        g = g.to(dt).contiguous()
+        dz, dw1, db1, dw2, db2 = mlp_bwd(h1, g, ln2s, ln2b, w1, b1, w2, dp2,
+                                         ctx.ln_eps)
+        dh1_ln, dln2s, dln2b = layer_norm_input_bwd(h1, dz, ln2s, ctx.ln_eps)
+        dh1 = (g.float() + dh1_ln).to(dt)
+        return (dh1, dln2s.to(ln2s.dtype), dln2b.to(ln2b.dtype),
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype), None, None)
+
+
+def fused_ln_mlp(h1, ln2s, ln2b, w1, b1, w2, b2,
+                 dp2: Optional[torch.Tensor] = None,
+                 ln_eps: float = 1e-5) -> torch.Tensor:
+    """K7: out = h1 + dp2 * fc2(gelu(fc1(LN2(h1)))) on (B, D, H, W, C), C <=
+    1024 (the Swin tower's stage 3 runs it at C = 1024, FF = 4096).
+
+    w1 (FF, C), w2 (C, FF) in nn.Linear layout, in h1's dtype; LN parameters
+    and biases f32; dp2: (B,) or (B, 1) f32 per-sample stochastic-depth
+    multipliers, or None when inactive. On CUDA: h1, w1, w2 bf16 and
+    contiguous. Differentiable: the backward is K5 (``mlp_bwd``) and the
+    LN2 input backward; with grad mode off the kernel runs without the
+    autograd.Function."""
+    dp = None if dp2 is None else dp2.reshape(-1)
+    if not torch.is_grad_enabled():
+        return ln_mlp_forward(fused_ln_mlp, h1, ln2s, ln2b, w1, b1, w2, b2,
+                              dp, ln_eps)
+    return _LnMlpFn.apply(h1, ln2s, ln2b, w1, b1, w2, b2, dp, ln_eps)
+
+
+fused_ln_mlp.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,10 @@ layers are unstacked, dense (in, out) weights become (out, in), the DHWIO
 patch-embed kernel becomes OIDHW, and the MHA in-projection is repacked as
 torch's (3D, D) ``in_proj_weight``. It reads a nested dict of numpy arrays
 and needs no JAX.
+
+Also the helpers that bring pretrained torch files to the port's names:
+``load_torch_state_dict``, ``strip_prefix`` and ``inflate_swin2d`` (the
+port's copies of ``lrce_tpu.utils.torch_io``'s, on tensors).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _index(tree, i: int):
@@ -145,3 +150,62 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     return {**head_state_dict(params["fusion_model"]),
             **bert_state_dict(params["text_extractor"]),
             **swin_state_dict(params["video_extractor"])}
+
+
+# ---------------------------------------------------------------------------
+# Torch checkpoint files
+# ---------------------------------------------------------------------------
+
+def unwrap_state_dict(ckpt) -> Dict[str, torch.Tensor]:
+    """The state dict inside a loaded torch checkpoint: the object itself,
+    or what it holds under 'model_state_dict', 'state_dict' or 'model'."""
+    if isinstance(ckpt, dict):
+        for key in ("model_state_dict", "state_dict", "model"):
+            if key in ckpt:
+                return ckpt[key]
+    return ckpt
+
+
+def load_torch_state_dict(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """Read a torch checkpoint file (tensors and plain containers only)
+    into a flat {name: tensor} dict on ``device``."""
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    return dict(unwrap_state_dict(ckpt))
+
+
+def strip_prefix(sd: Dict[str, torch.Tensor], prefix: str
+                 ) -> Dict[str, torch.Tensor]:
+    """Keep the entries under ``prefix`` and strip it ('backbone.' for the
+    Video-Swin Kinetics checkpoint)."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def inflate_swin2d(sd: Dict[str, torch.Tensor], window_size=(8, 7, 7),
+                   patch_size_d: int = 2) -> Dict[str, torch.Tensor]:
+    """Inflate a 2D Swin state dict to the 3D layout, as
+    ``lrce_tpu.utils.torch_io.inflate_swin2d``:
+
+      - drop relative_position_index / attn_mask buffers (re-derived),
+      - patch_embed conv (O, I, H, W) -> (O, I, D, H, W) / D,
+      - bicubic-resize each relative_position_bias_table to the 3D window's
+        spatial extent, then tile along the temporal axis (2*wd - 1 copies).
+    """
+    out: Dict[str, torch.Tensor] = {}
+    wd, wh, ww = window_size
+    l2 = (2 * wh - 1) * (2 * ww - 1)
+    for k, v in sd.items():
+        if "relative_position_index" in k or "attn_mask" in k:
+            continue
+        if k == "patch_embed.proj.weight" and v.ndim == 4:
+            v = v[:, :, None].repeat(1, 1, patch_size_d, 1, 1) / patch_size_d
+        elif "relative_position_bias_table" in k:
+            l1, nh = v.shape
+            if l1 != l2:
+                s1 = int(round(l1 ** 0.5))
+                t = v.float().permute(1, 0).reshape(1, nh, s1, s1)
+                t = F.interpolate(t, size=(2 * wh - 1, 2 * ww - 1),
+                                  mode="bicubic")
+                v = t.reshape(nh, l2).permute(1, 0).to(v.dtype)
+            v = v.repeat(2 * wd - 1, 1)
+        out[k] = v.contiguous()
+    return out

@@ -37,7 +37,7 @@ def test_state_dict_keys_are_the_models(task):
     jcfg, pcfg = tiny_configs(task)
     params = jax.tree.map(np.asarray, E.e2e_init(jax.random.PRNGKey(2), jcfg))
     sd = state_dict_from_jax(params)
-    model = PE.LRCEModel(pcfg)
+    model = PE.LRCEModel(pcfg, device="cpu")
     assert set(sd) == set(model.state_dict())
     for k, v in model.state_dict().items():
         assert tuple(v.shape) == tuple(sd[k].shape), k
@@ -48,7 +48,7 @@ def test_port_state_dict_loads_into_jax():
     read by convert_e2e, gives lrce_tpu the same logits (5e-4, as the
     end-to-end test)."""
     jcfg, pcfg = tiny_configs("oe")
-    model = PE.LRCEModel(pcfg, generator=torch.Generator().manual_seed(3))
+    model = PE.LRCEModel(pcfg, device="cpu", generator=torch.Generator().manual_seed(3))
     params = convert_e2e({k: v.numpy() for k, v in model.state_dict().items()})
     clips, ids, mask, types = tiny_inputs("oe", seed=4)
     want = np.asarray(E.e2e_forward(params, clips, ids.astype(np.int32),
@@ -62,7 +62,7 @@ def test_port_state_dict_loads_into_jax():
 def test_bf16_model_keeps_norms_and_biases_f32():
     jcfg, pcfg = tiny_configs("oe")
     params = jax.tree.map(np.asarray, E.e2e_init(jax.random.PRNGKey(5), jcfg))
-    model = PE.LRCEModel(pcfg, dtype=torch.bfloat16)
+    model = PE.LRCEModel(pcfg, device="cpu", dtype=torch.bfloat16)
     model.load_state_dict(state_dict_from_jax(params))
     sd = model.state_dict()
     blk = "video_extractor.swin.layers.0.blocks.0"

@@ -1,8 +1,9 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
-bf16, at a small geometry, and the K1 / K3 / K2 autograd.Functions'
-gradients against torch autograd through the plain versions. Every test
-needs a GPU and skips without one. The file imports no JAX, so it runs
-where JAX is not installed:
+"""The CUDA kernels K1-K8 against their plain PyTorch versions on the card,
+bf16, at a small geometry (K7 and K5 also at C = 1024, K8 at C = 128), the
+K1 / K3 / K2 / K7 autograd.Functions' gradients against torch autograd
+through the plain versions, and the prefetcher's side-stream copies against
+blocking ones. Every test needs a GPU and skips without one. The file
+imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
 
@@ -20,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+from lrce_tpu_torch.data.prefetch import device_prefetch
 from lrce_tpu_torch.models.swin3d import compute_shift_mask
+from lrce_tpu_torch.ops import mlp as M
 from lrce_tpu_torch.ops import nn as NN
 from lrce_tpu_torch.ops import swin_block as SB
 from lrce_tpu_torch.ops import window_attn as WA
@@ -232,3 +235,121 @@ def test_matmul_f32_backward_matches_the_upcast_product(dev):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
     for got, want in zip(*grads):
         assert (got - want).abs().le(want.abs() * 2.0 ** -7).all()
+
+
+# ---------------------------------------------------------------------------
+# K7, K8, and K5 at stage-3 width
+# ---------------------------------------------------------------------------
+
+def _mlp_args(rng, dev, shape, ff):
+    """x, g, [ln_s, ln_b, w1, b1, w2, b2], dp (B,) on the card."""
+    c = shape[-1]
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    x = f32(rng.normal(size=shape)).bfloat16()
+    g = f32(rng.normal(size=shape)).bfloat16()
+    args = [f32(1.0 + 0.2 * rng.normal(size=c)), f32(0.1 * rng.normal(size=c)),
+            f32(rng.normal(size=(ff, c)) / np.sqrt(c)).bfloat16(),
+            f32(0.02 * rng.normal(size=ff)),
+            f32(rng.normal(size=(c, ff)) / np.sqrt(ff)).bfloat16(),
+            f32(0.02 * rng.normal(size=c))]
+    dp = f32(rng.binomial(1, 0.7, shape[0]) / 0.7)
+    return x, g, args, dp
+
+
+# (B, D, H, W, C), FF: the narrow test geometry; stage 3 with a row tail
+# (T = 441 is no multiple of the 128-row GEMM tile) and rows enough for
+# more than one slab of whole samples
+K7_SHAPES = {"c64": ((2, 2, 6, 9, 64), 256), "stage3": ((3, 3, 7, 7, 1024), 4096),
+             "stage3-slabs": ((16, 3, 7, 7, 1024), 4096)}
+
+
+@pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
+@pytest.mark.parametrize("shape", list(K7_SHAPES))
+def test_k7(dev, shape, with_dp):
+    dims, ff = K7_SHAPES[shape]
+    x, _, args, dp = _mlp_args(np.random.default_rng(10), dev, dims, ff)
+    dp = dp if with_dp else None
+    before = SB.fused_ln_mlp.launches
+    with torch.no_grad():
+        got = SB.fused_ln_mlp(x, *args, dp)
+    assert SB.fused_ln_mlp.launches == before + 1
+    _close(got, SB.ln_mlp_plain(x, *args, dp))
+    if shape == "stage3-slabs":
+        t = dims[0] * dims[1] * dims[2] * dims[3]
+        assert SB.mlp_slab_rows(t, ff, t // dims[0], with_dp) < t
+
+
+@pytest.mark.parametrize("shape", [((2, 2, 6, 9, 64), 256),
+                                   ((2, 3, 56, 56, 128), 512)],
+                         ids=["c64", "stage0"])
+def test_k8(dev, shape):
+    dims, ff = shape
+    x, _, args, _ = _mlp_args(np.random.default_rng(11), dev, dims, ff)
+    before = M.fused_mlp.launches
+    with torch.no_grad():
+        got = M.fused_mlp(x, *args)
+    assert M.fused_mlp.launches == before + 1
+    _close(got, M.fused_mlp_plain(x, *args))
+
+
+def test_k5_at_stage3_width(dev):
+    x, g, args, dp = _mlp_args(np.random.default_rng(12), dev,
+                               (3, 3, 7, 7, 1024), 4096)
+    k5 = (x, g, *args[:5], dp, 1e-5)
+    before = SB.mlp_bwd.launches
+    got = SB.mlp_bwd(*k5)
+    assert SB.mlp_bwd.launches == before + 1
+    for a, b in zip(got, SB.mlp_bwd_plain(*k5)):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("shape", ["c64", "stage3"])
+def test_fused_ln_mlp_grads(dev, shape):
+    """K7's custom backward (K5 + the LN2 input backward) against autograd
+    through the plain version."""
+    dims, ff = K7_SHAPES[shape]
+    x, _, args, dp = _mlp_args(np.random.default_rng(13), dev, dims, ff)
+    before = SB.mlp_bwd.launches
+    got = _grads(lambda x_, w: SB.fused_ln_mlp(x_, *w, dp), x, args)
+    assert SB.mlp_bwd.launches == before + 1
+    want = _grads(lambda x_, w: SB.ln_mlp_plain(x_, *w, dp), x, args)
+    for a, b in zip(got, want):
+        _close(a, b, rel=3e-2, max_rel=6e-2)
+
+
+def test_fused_mlp_grads_and_refusals(dev):
+    dims, ff = K7_SHAPES["c64"]
+    x, _, args, _ = _mlp_args(np.random.default_rng(14), dev, dims, ff)
+    got = _grads(lambda x_, w: M.fused_mlp(x_, *w), x, args)
+    want = _grads(lambda x_, w: M.fused_mlp_plain(x_, *w), x, args)
+    for a, b in zip(got, want):
+        _close(a, b, rel=3e-2, max_rel=6e-2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        M.fused_mlp(x.float(), *(a.float() for a in args))
+    with pytest.raises(ValueError, match="shape"):
+        SB.fused_ln_mlp(x, *args, torch.ones(5, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the prefetcher
+# ---------------------------------------------------------------------------
+
+def test_prefetch_on_a_side_stream_equals_a_blocking_copy(dev):
+    rng = np.random.default_rng(15)
+    batches = [(rng.integers(0, 256, (4, 3, 5, 64, 64, 3), dtype=np.uint8),
+                rng.integers(0, 30000, (4, 32)), rng.normal(size=(4,)))
+               for _ in range(6)]
+    seen = 0
+    for got, want in zip(device_prefetch(iter(batches), dev, depth=2), batches):
+        # consume on the current stream right away, as a train step does
+        sums = [t.double().sum() for t in got]
+        for t, s, a in zip(got, sums, want):
+            blocking = torch.from_numpy(a).to(dev)
+            assert t.device.type == "cuda" and t.dtype == blocking.dtype
+            assert torch.equal(t, blocking)
+            assert s.item() == blocking.double().sum().item()
+        seen += 1
+    assert seen == len(batches)

@@ -70,7 +70,7 @@ def tiny_inputs(task: str, seed: int = 0):
 def test_e2e_forward_matches_jax(task):
     jcfg, pcfg = tiny_configs(task)
     params = jax.tree.map(np.asarray, E.e2e_init(jax.random.PRNGKey(0), jcfg))
-    model = PE.LRCEModel(pcfg)
+    model = PE.LRCEModel(pcfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params))
     clips, ids, mask, types = tiny_inputs(task)
     want = np.asarray(E.e2e_forward(params, clips, ids.astype(np.int32),
@@ -89,12 +89,27 @@ def test_e2e_forward_matches_jax(task):
 
 def test_e2e_forward_rejects_bad_shapes():
     _, pcfg = tiny_configs("oe")
-    model = PE.LRCEModel(pcfg)
+    model = PE.LRCEModel(pcfg, device="cpu")
     clips, ids, mask, types = (torch.from_numpy(a) for a in tiny_inputs("oe"))
     with pytest.raises(ValueError, match="clips"):
         PE.e2e_forward(model, clips[:, :2], ids, mask, types)
     with pytest.raises(ValueError, match="ndim"):
         PE.e2e_forward(model, clips, ids[:, None], mask, types)
+
+
+def test_model_defaults_to_the_card_and_raises_without_one():
+    """``LRCEModel(cfg)`` is built on the card; with no CUDA and no device
+    given it raises and never carries on on the CPU. The CPU is asked for
+    by name."""
+    _, pcfg = tiny_configs("oe")
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PE.LRCEModel(pcfg)
+    model = PE.LRCEModel(pcfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert not model.video_extractor.swin.ln_mlp        # off by default
+    routed = PE.LRCEModel(pcfg, device="cpu", ln_mlp=True)
+    assert routed.video_extractor.swin.ln_mlp
 
 
 def test_port_never_imports_jax():
@@ -103,10 +118,13 @@ def test_port_never_imports_jax():
         import torch
         import lrce_tpu_torch
         from lrce_tpu_torch import constants
-        from lrce_tpu_torch.ops import cuda_lib, nn, swin_block, window_attn
+        from lrce_tpu_torch import config, pretrained
+        from lrce_tpu_torch.data import loader, prefetch, sampling
+        from lrce_tpu_torch.ops import cuda_lib, mlp, nn, swin_block, window_attn
         from lrce_tpu_torch.models import bert, e2e, embedding, fusion, swin3d
         from lrce_tpu_torch.train import agent, losses, optimizer, schedule
-        from lrce_tpu_torch.utils import convert, pytree
+        from lrce_tpu_torch.utils import checkpoint, convert, device, logging
+        from lrce_tpu_torch.utils import pytree
         cfg = e2e.E2EConfig(
             feature_dim=36, num_classes=5, video_feature_dim=64,
             text_seq_len=8,
@@ -114,7 +132,7 @@ def test_port_never_imports_jax():
                                  intermediate_size=72),
             swin=swin3d.SwinConfig(embed_dim=8, depths=(2, 2, 2, 2),
                                    num_heads=(2, 2, 2, 2)))
-        model = e2e.LRCEModel(cfg)
+        model = e2e.LRCEModel(cfg, device="cpu")
         clips = torch.randint(0, 256, (1, 3, 5, 224, 224, 3), dtype=torch.uint8)
         ids = torch.randint(0, 1000, (1, 8))
         out = e2e.e2e_forward(model, clips, ids, torch.ones_like(ids),

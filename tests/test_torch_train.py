@@ -300,7 +300,7 @@ def _jax_agent(task, jcfg, params, args):
 
 
 def _port_model(pcfg, params):
-    model = PE.LRCEModel(pcfg)
+    model = PE.LRCEModel(pcfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params))
     return model
 
@@ -334,7 +334,7 @@ def test_e2e_gradients_match_jax_agent_loss(task):
     want = state_dict_from_jax(jax.tree.map(np.asarray, jgrads))
 
     model = _port_model(pcfg, params)
-    agent = PA.agent_factory(task)(model, args)
+    agent = PA.agent_factory(task)(model, args, log_enabled=False)
     pb = [torch.from_numpy(np.asarray(a)) for a in batch]
     loss = agent._loss(agent._forward(*pb[:4], True), pb[4])
     loss.backward()
@@ -366,7 +366,7 @@ def test_agent_oe_train_step_matches_jax():
     want = state_dict_from_jax(jax.tree.map(np.asarray, jagent.params))
 
     model = _port_model(pcfg, params)
-    agent = PA.AgentOE(model, args)
+    agent = PA.AgentOE(model, args, log_enabled=False)
     loss, m0, m1 = agent.step(*batch, is_train=True)
     np.testing.assert_allclose(loss, jloss, rtol=1e-4)
     assert m1 == 2.0
@@ -390,7 +390,7 @@ def test_e2e_training_forward_is_seeded():
     """Dropout and drop-path on: the same generator seed gives the same
     logits, another seed other logits; eval mode draws nothing."""
     _, pcfg = tiny_configs("oe", rate=0.3)
-    model = PE.LRCEModel(pcfg)
+    model = PE.LRCEModel(pcfg, device="cpu")
     batch = [torch.from_numpy(np.asarray(a)) for a in tiny_batch("oe")[:4]]
 
     def run(seed):
@@ -409,8 +409,8 @@ def test_e2e_training_forward_is_seeded():
 def test_process_data_reads_one_step_behind():
     """process_data enqueues step i+1 before it reads step i's metrics."""
     _, pcfg = tiny_configs("oe")
-    model = PE.LRCEModel(pcfg)
-    agent = PA.AgentOE(model, _args())
+    model = PE.LRCEModel(pcfg, device="cpu")
+    agent = PA.AgentOE(model, _args(), log_enabled=False)
     order = []
     real_dispatch = agent.dispatch
 
@@ -451,8 +451,9 @@ def test_train_slice_never_imports_jax():
                                  intermediate_size=72),
             swin=swin3d.SwinConfig(embed_dim=8, depths=(2, 2, 2, 2),
                                    num_heads=(2, 2, 2, 2)))
-        model = e2e.LRCEModel(cfg)
-        ag = agent.AgentOE(model, agent.default_args(lr=[1e-3] * 3))
+        model = e2e.LRCEModel(cfg, device="cpu")
+        ag = agent.AgentOE(model, agent.default_args(lr=[1e-3] * 3),
+                            log_enabled=False)
         clips = np.random.randint(0, 256, (1, 3, 5, 224, 224, 3), np.uint8)
         ids = np.random.randint(0, 1000, (1, 8))
         loss, m0, m1 = ag.step(clips, ids, np.ones_like(ids),
