@@ -7,7 +7,16 @@ Phases, each raising on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit as
      nvidia-smi gives them; turns TF32 off for the f32 references;
   2. build: compiles lrce_tpu_torch/csrc for sm_90a (one nvcc per source,
-     all at once) and prints the time;
+     all at once) and prints the time and, per kernel, ptxas's registers and
+     spill bytes;
+  2b. gemms: the two GEMMs every Swin kernel shares, on their own
+     (``ops/gemm.py``), at every shape a request (6 clips) and a train step
+     (48 clips) give them: the wgmma GEMM with each epilogue (qkv, proj, fc1,
+     fc2, and the backward's dctx, dy, dz that read the weight in place) and
+     the split-K weight-gradient GEMM (dWqkv, dWproj, dW1, dW2) against an
+     f32 product of the same bf16 operands, each with its time, its bound
+     and the time of the library's product of the same operands (a
+     yardstick: the port never calls it), printed as one JSON line;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      flagship shapes (bf16), at 6 clips (one request) and at the train
      step's 48: K1, K3, K2 (forward); K6 with and without the mask at
@@ -60,7 +69,8 @@ Phases, each raising on failure (the script then exits non-zero):
 
 In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
 6-clip request (K1, K3, K2, K7; one call for K8) or the backward of one
-6-clip step (K6, K5, K4) makes. bound_ms is the larger of the call's
+6-clip step (K6, K5, K4) makes; ``clips48`` holds the same three sums over
+the calls of one 48-clip train step. bound_ms is the larger of the call's
 operations over 989 TFLOP/s (dense bf16) and its bytes (each input read
 once, each output written once) over 3.35 TB/s, the H100 SXM's published
 peaks. library_ms is null: no single PyTorch call computes any of these
@@ -73,6 +83,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -166,9 +177,25 @@ def phase_build():
 
     lib = cuda_lib.library()
     print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s", flush=True)
+    # ptxas -v: "Compiling entry function '<mangled>'", then its spill
+    # bytes, then its registers; a spilled wgmma accumulator shows here
+    name = None
+    spills = ""
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = re.search(r"(?<=\d)[a-z][a-z_]*_kernel", entry.group(1))
+            name = kernel.group(0) if kernel else entry.group(1)[:60]
+            targs = re.findall(r"L[ib](\d+)E", entry.group(1).split(name)[-1]
+                               .split("Ev")[0])
+            name += f"<{','.join(targs)}>" if targs else ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            used = re.search(r"Used (\d+) registers", line)
+            print(f"[build]   {name}: {used.group(1) if used else '?'} "
+                  f"registers; {spills}")
+            name = None
     return lib
 
 
@@ -276,6 +303,105 @@ def _seeded(shape, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen)).cuda().bfloat16()
 
 
+GEMM_REL_L2_F32 = 1e-4     # split-K GEMM, f32 out: only the sum's order differs
+# calls per block of a train step, (stages 0-2, stage 3): qkv runs in the
+# forward, K6's recompute and K4's; proj in the forward and K6; K6 does not
+# run at stage 3
+GEMM_CALLS = {"qkv": (3, 2), "proj": (2, 1), "fc1": (1, 1), "fc2": (1, 1),
+              "dctx": (1, 1), "dy": (1, 1), "dz": (1, 1), "dWqkv": (1, 1),
+              "dWproj": (1, 1), "dW1": (1, 1), "dW2": (1, 1)}
+BLOCKS = (2, 2, 18, 2)
+
+
+def phase_gemms():
+    """The shared wgmma GEMM and the split-K GEMM alone, at every shape of a
+    request and of a train step, against f32 products of the same operands."""
+    from lrce_tpu_torch.ops import gemm as G
+
+    gen = torch.Generator().manual_seed(99)
+    n_win = WINDOW[0] * WINDOW[1] * WINDOW[2]
+    rows = []
+    for clips in (N_CLIPS, TRAIN_CLIPS):
+        iters = 3 if clips == N_CLIPS else 5
+        for stage, (d, h, w, c, _) in enumerate(STAGES):
+            t = clips * d * h * w
+            ff = 4 * c
+            dp = (torch.rand((clips,), generator=gen) < 0.8).float().cuda() / 0.8
+            dp_rows = d * h * w
+            # name: (M, N, K, mode, b_kn, epilogue arguments)
+            nt = {"qkv": (3 * c, c, G.EPI_BIAS, False, "b"),
+                  "proj": (c, c, G.EPI_ATTN_OUT, False, "bdr"),
+                  "fc1": (ff, c, G.EPI_BIAS_GELU, False, "b"),
+                  "fc2": (c, ff, G.EPI_MLP_OUT, False, "bdr"),
+                  "dctx": (c, c, G.EPI_ATTN_OUT, True, ""),
+                  "dy": (c, 3 * c, G.EPI_ATTN_OUT, True, ""),
+                  "dz": (c, ff, G.EPI_ATTN_OUT, True, "")}
+            for name, (n, k, mode, b_kn, epi) in nt.items():
+                a = _seeded((t, k), gen)
+                b = _seeded((k, n) if b_kn else (n, k), gen, 1 / math.sqrt(k))
+                kw = dict(mode=mode, b_kn=b_kn)
+                if "b" in epi:
+                    kw["bias"] = 0.02 * torch.randn((n,), generator=gen).cuda()
+                if "d" in epi:
+                    kw.update(dp=dp, dp_rows=dp_rows)
+                if "r" in epi:
+                    kw["res"] = _seeded((t, n), gen)
+                got = G.gemm_bf16(a, b, **kw)
+                err = _compare(f"gemm {name} stage {stage} ({t}, {n}, {k})",
+                               got, G.gemm_bf16_plain(a, b, **kw))
+                del got
+                bt = b if b_kn else b.t()
+                lib, k1, k2, lib2 = (_cuda_time_ms(f, iters) for f in (
+                    lambda: torch.matmul(a, bt),
+                    lambda: G.gemm_bf16(a, b, **kw),
+                    lambda: G.gemm_bf16(a, b, **kw),
+                    lambda: torch.matmul(a, bt)))
+                nbytes = 2 * (t * k + n * k + t * n * (2 if "r" in epi else 1))
+                rows.append((name, clips, stage, (t, n, k), err, (k1 + k2) / 2,
+                             (lib + lib2) / 2, (2 * t * n * k, nbytes)))
+                del a, b, kw
+            tn = {"dWqkv": (3 * c, c), "dWproj": (c, c), "dW1": (ff, c),
+                  "dW2": (c, ff)}
+            for name, (n, k) in tn.items():
+                g, a = _seeded((t, n), gen), _seeded((t, k), gen)
+                err = _compare(f"gemm_tn {name} stage {stage} ({t}, {n}, {k})",
+                               G.gemm_tn(g, a), G.gemm_tn_plain(g, a),
+                               GEMM_REL_L2_F32, GEMM_REL_L2_F32)
+                lib, k1, k2, lib2 = (_cuda_time_ms(f, iters) for f in (
+                    lambda: torch.mm(g.t(), a, out_dtype=torch.float32),
+                    lambda: G.gemm_tn(g, a), lambda: G.gemm_tn(g, a),
+                    lambda: torch.mm(g.t(), a, out_dtype=torch.float32)))
+                rows.append((name, clips, stage, (t, n, k), err, (k1 + k2) / 2,
+                             (lib + lib2) / 2,
+                             (2 * t * n * k, 2 * t * (n + k) + 4 * n * k)))
+                del g, a
+            torch.cuda.empty_cache()
+    require(G.gemm_bf16.launches > 0 and G.gemm_tn.launches > 0,
+            "the GEMM wrappers launched nothing")
+    out = []
+    sums = {}
+    for name, clips, stage, shape, err, ms, lib, work in rows:
+        bound, by = _bound_ms(work)
+        calls = BLOCKS[stage] * GEMM_CALLS[name][stage == 3]
+        print(f"[gemms] {name} stage {stage}, {clips} clips, (M, N, K) "
+              f"{shape}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"library {lib:.4f} ms; {calls} call(s) a step", flush=True)
+        tot = sums.setdefault(("gemm_tn" if name.startswith("dW") else
+                               "gemm_bf16", clips), [0.0, 0.0, 0.0])
+        for i, v in enumerate((ms, bound, lib)):
+            tot[i] += calls * v
+        out.append({"name": name, "clips": clips, "stage": stage,
+                    "shape": list(shape), "max_abs_err": err, "ms": ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                    "calls_per_step": calls})
+    for (kind, clips), (ms, bound, lib) in sums.items():
+        print(f"[gemms] {kind}, the calls of one train step at {clips} clips: "
+              f"kernel {ms:.4f} ms, bound {bound:.4f} ms, library {lib:.4f} ms",
+              flush=True)
+    print(json.dumps({"gemms": out}), flush=True)
+    return out
+
+
 def phase_kernels():
     from lrce_tpu_torch.models.swin3d import compute_shift_mask
     from lrce_tpu_torch.ops import swin_block as SB
@@ -310,7 +436,10 @@ def phase_kernels():
         del got, want
         if not (bool(calls) if timed is None else timed):
             return
-        p1, k1, k2, p2 = (_cuda_time_ms(f) for f in (run_p, run_k, run_k, run_p))
+        # fewer timed iterations at 6 clips and for the plain versions
+        it_k, it_p = (10, 5) if train_shape else (4, 4)
+        p1, k1, k2, p2 = (_cuda_time_ms(f, it) for f, it in (
+            (run_p, it_p), (run_k, it_k), (run_k, it_k), (run_p, it_p)))
         tk, tp = (k1 + k2) / 2, (p1 + p2) / 2
         bound, by = _bound_ms(work)
         r = results[kernel]
@@ -464,7 +593,7 @@ def phase_kernels():
     for k, r in by_clips[N_CLIPS].items():
         r["max_abs_err"] = max(r["max_abs_err"],
                                by_clips[TRAIN_CLIPS][k]["max_abs_err"])
-    return by_clips[N_CLIPS], per_call
+    return by_clips[N_CLIPS], by_clips[TRAIN_CLIPS], per_call
 
 
 def _grads(fn, x, leaves, g):
@@ -998,7 +1127,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     lib = phase_build()
-    results, per_call = phase_kernels()
+    phase_gemms()
+    results, results48, per_call = phase_kernels()
     phase_function_grads()
     fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
     train_launches, step_ms, peak = phase_train()
@@ -1023,7 +1153,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
                          else "bytes"),
-            "library_ms": None})
+            "library_ms": None,
+            "clips48": {key: results48[k][key]
+                        for key in ("ms", "plain_ms", "bound_ms")}})
     print(f"[summary] {card}; build {lib.build_seconds:.1f} s; request "
           f"latency ms kernel route {lat_k}, plain route {lat_p}, with K7 "
           f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "

@@ -1,0 +1,172 @@
+// Hopper (sm_90a) primitives as inline PTX, used by the GEMMs of
+// swin_common.cu and the fused MLP-backward kernel of mlp_bwd.cu:
+//   - cp.async 16-byte copies (zero-filled when the source is out of range)
+//     into shared-memory tiles whose rows are 128 bytes, swizzled as wgmma's
+//     128-byte mode expects (16-byte chunk c of row r lies at c ^ (r & 7));
+//   - shared-memory matrix descriptors for such tiles, read either along
+//     their rows (the reduction axis contiguous, "K-major") or across them
+//     (the reduction axis is the row index, "MN-major", the transpose bit);
+//   - wgmma.mma_async m64n128k16, bf16 x bf16 -> f32 in registers.
+// The accumulator of a warpgroup (4 warps): thread (warp w, lane l) holds,
+// for j = 0..15, d[4j], d[4j+1] = row 16w + l/4, columns 8j + 2(l%4) + {0,1}
+// and d[4j+2], d[4j+3] = the same columns of row 16w + l/4 + 8.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace lrce {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zeros when !valid (src is not read then).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Shared-memory writes of this thread (cp.async included, once waited for)
+// become visible to the asynchronous proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a tile of
+// 128-byte rows with the 128-byte swizzle; the tile base is 1024-aligned.
+__device__ __forceinline__ uint32_t swz128(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// Descriptor of a 128-byte-swizzled tile. sbo: bytes between groups of 8
+// rows (1024 for a dense tile). lbo: used only when the tile is read across
+// its rows and the operand is wider than 64 elements: bytes between the
+// 64-element column blocks.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16) . B (16 x 128). kTransA / kTransB = 1:
+// the operand's tile is read across its rows (see wgmma_desc). accumulate =
+// 0 overwrites d.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// Leaving the accumulator: a warp dumps its 16 x 128 block into an f32
+// staging tile in shared memory (rows of STAGE_LD floats: the 8-float pad
+// keeps the fragment's 8-byte stores and the 16-byte reads below free of
+// bank conflicts), after which lane l owns columns 8 (l % 16) .. + 7 of rows
+// l / 16, l / 16 + 2, ...: 16-byte accesses, whole 256-byte row segments per
+// warp instruction.
+// ---------------------------------------------------------------------------
+constexpr int STAGE_LD = 136;  // floats per row of a staging tile
+constexpr int STAGE_WARP_BYTES = 16 * STAGE_LD * 4;
+
+// This warp's 16 x 128 accumulator block -> its f32 staging tile.
+__device__ __forceinline__ void stage_acc(float* st, const float (&acc)[64],
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(st + (g + 8 * half) * STAGE_LD + 8 * j +
+                                 2 * t) =
+          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+}  // namespace lrce

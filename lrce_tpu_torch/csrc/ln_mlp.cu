@@ -16,8 +16,8 @@
 // order and carry nothing, so fc2 keeps its whole FF sum in the tensor
 // cores' f32 accumulators instead.
 //
-// What bounds it on the H100: the two GEMMs (2 x 2 T C FF operations, WMMA
-// on the tensor cores) at both widths, by the card's published peaks: at
+// What bounds it on the H100: the two GEMMs (2 x 2 T C FF operations, the
+// shared wgmma GEMM of swin_common.cu) at both widths, by the card's published peaks: at
 // C = 1024 they are 725 operations per byte that must move, at C = 128
 // still 507 (the card turns at about 295). What this version pays on top is
 // the bf16 hidden (T, FF), four times the activation, which goes through a

@@ -13,8 +13,9 @@
 //
 // What bounds it on the H100: the four GEMMs (qkv, proj, fc1, fc2) are
 // 72% (stage 0) to 91% (stage 2) of the block's operations and run on the
-// tensor cores through WMMA; the (T, 4C) GELU hidden and the (T, 3C) qkv make one round trip
-// through device memory each, which at C = 128 (stage 0) is the larger
+// tensor cores through the shared wgmma GEMM (swin_common.cu); the (T, 4C)
+// GELU hidden and the (T, 3C) qkv make one round trip through device memory
+// each, which at C = 128 (stage 0) is the larger
 // cost. This first version keeps the pieces as separate launches on one
 // stream and keeps nothing on chip across them; fusing LN into the GEMM's
 // A-load and fc1 into fc2 are the next steps.

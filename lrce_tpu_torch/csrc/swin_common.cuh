@@ -4,14 +4,15 @@
 //       r, read from its spatial position, cyclic shift included; and the
 //       same gather without the LayerNorm;
 //   (b) window attention, one CTA per (window, head);
-//   (c) a bf16 tensor-core GEMM (WMMA, f32 accumulate), out = A . Wt^T,
-//       with epilogues: +bias; +bias and exact-erf GELU; +bias, x dp,
-//       + residual, scattered back to spatial order; the GELU's f32
-//       pre-activation kept beside its bf16 output; the GELU backward with
-//       per-CTA column sums;
+//   (c) a bf16 tensor-core GEMM (wgmma fed by a cp.async ring, f32
+//       accumulate in registers), out = A . W^T or A . B, with epilogues
+//       applied from the registers: +bias; +bias and exact-erf GELU; +bias,
+//       x dp, + residual, scattered back to spatial order; + residual in
+//       f32;
 //   (d) the weight-gradient GEMM out = G^T . A (both row-major with the
-//       long reduction axis first), split over the reduction into f32
-//       partials that a second pass sums in a fixed order.
+//       long reduction axis first, read as they lie), split over the
+//       reduction into f32 partials that a second pass sums in a fixed
+//       order.
 //
 // Rounding points follow the JAX kernels (lrce_tpu/ops/pallas_swin_block.py
 // _block_kernel, pallas_window_attn.py _attn_ctx / _hsplit_kernel): qkv+bias
@@ -56,12 +57,11 @@ enum EpiMode {
   EPI_BIAS = 0,       // bf16(acc + bias)
   EPI_BIAS_GELU = 1,  // bf16(gelu(acc + bias))
   EPI_ATTN_OUT = 2,   // bf16(x res + bf16((acc + bias) x dp)), scatter
-  EPI_MLP_OUT = 3,    // bf16(res + (acc + bias) x dp)
-  EPI_PRE_GELU = 4,   // aux = acc + bias (f32); out = bf16(gelu(aux))
-  EPI_GELU_BWD = 5    // out = bf16(acc x gelu'(aux)), column sums of the f32
+  EPI_MLP_OUT = 3     // bf16(res + (acc + bias) x dp)
 };
 
-// What the GEMM does with its f32 accumulator (see epilogue_store).
+// What the GEMM does with its f32 accumulator (see epilogue8 in
+// swin_common.cu).
 struct Epilogue {
   int mode;
   const float* bias;  // (N,) f32, or null
@@ -70,9 +70,6 @@ struct Epilogue {
   const bf16* res;    // residual (row-major, ld N), or null
   int scatter;        // EPI_ATTN_OUT: rows are window order, write spatial
   WinGeom g;
-  float* aux;         // EPI_PRE_GELU: (M, N) f32 out; EPI_GELU_BWD: (M, N) in
-  float* colsum;      // EPI_GELU_BWD: (gridDim.x * 4, N) f32 column sums,
-                      // one row per (CTA, warp row), every row written
 };
 
 static __device__ __forceinline__ float warp_sum(float v) {
@@ -100,9 +97,15 @@ int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
 int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
                 const float* mask, long long nwin_total, int nwin_clip, int N,
                 int C, int num_heads, cudaStream_t stream);
-// (c) out = epilogue(A (M x K) . Wt^T), Wt (N x K).
-int launch_gemm(const bf16* A, const bf16* Wt, bf16* out, long long M, int N,
-                int K, const Epilogue& ep, cudaStream_t stream);
+// (c) out = epilogue(A (M x K) . W^T) with Bm = W (N x K), or, with b_kn
+//     (EPI_ATTN_OUT only), epilogue(A . Bm) with Bm (K x N); all row-major,
+//     K % 8 == 0, N % 8 == 0.
+int launch_gemm(const bf16* A, const bf16* Bm, bf16* out, long long M, int N,
+                int K, const Epilogue& ep, cudaStream_t stream,
+                bool b_kn = false);
+// Whether launch_gemm takes its 128 x 256 tile (else 128 x 128) on a card
+// of `sms` SMs.
+bool gemm_wide_tile(long long M, int N, int K, int sms);
 // Rows in window order: dst row r = src row at window token r's spatial
 // position (shift included), C wide.
 int launch_gather(const bf16* src, bf16* dst, long long rows,

@@ -24,9 +24,11 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("swin_common.cu", "swin_block.cu", "window_attn.cu",
-           "attn_bwd.cu", "mlp_bwd.cu", "ln_mlp.cu")
-HEADERS = ("swin_common.cuh",)
+           "attn_bwd.cu", "mlp_bwd.cu", "ln_mlp.cu", "gemm.cu")
+HEADERS = ("swin_common.cuh", "hopper.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,11 +42,14 @@ _SIGNATURES = {
     "lrce_window_attn_fwd": (
         [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 8 + [_P] * 2 + [_P]),
     "lrce_attn_bwd": (
-        [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 8 + [_P] * 5 + [_P] * 9
+        [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 7 + [_P] * 5 + [_P] * 9
         + [_I, _I, _P]),
     "lrce_mlp_bwd": (
-        [_P, _P] + [_I] * 6 + [_F] + [_P] * 7 + [_P] * 5 + [_P] * 6
+        [_P, _P] + [_I] * 6 + [_F] + [_P] * 6 + [_P] * 5 + [_P] * 5
         + [_I, _I, _P]),
+    "lrce_gemm": [_P, _P, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
+    "lrce_gemm_tn": [_P, _P, _P] + [_I] * 4 + [_P, _P],
+    "lrce_gemm_wide_tile": [_I] * 4,
     "lrce_ln_mlp_fwd": (
         [_P, _P] + [_I] * 5 + [_F] + [_P] * 7 + [_P] * 2 + [_P]),
 }
@@ -73,7 +78,7 @@ def _digest() -> str:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -104,11 +109,10 @@ def build() -> tuple[Path, float, str]:
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    log = _run_all([[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-                     "-fPIC", "-Xptxas=-v", "-c", str(CSRC / s), "-o",
-                     str(o)] for s, o in zip(SOURCES, objs)])
+    log = _run_all([[nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-c", str(CSRC / s),
+                     "-o", str(o)] for s, o in zip(SOURCES, objs)])
     tmp = path.with_suffix(f".{tag}")
-    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+    log += _run_all([[nvcc, *ARCH_FLAGS, *LINK_FLAGS, "-o", str(tmp),
                       *map(str, objs)]])
     seconds = time.perf_counter() - t0
     for o in objs:

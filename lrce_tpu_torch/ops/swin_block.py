@@ -145,6 +145,24 @@ def mlp_bwd_plain(h1, g, ln2s, ln2b, w1, b1, w2,
     return dz, dw1, db1, dw2, db2
 
 
+MLP_BWD_TILE_ROWS = 128     # tokens per tile of K5's hidden kernel
+
+
+def mlp_bwd_col_rows(t: int) -> int:
+    """Rows of K5's column-sum workspace: the hidden kernel writes one f32
+    row of db1 partials per tile of 128 tokens, summed in a fixed order."""
+    return -(-t // MLP_BWD_TILE_ROWS)
+
+
+def mlp_bwd_workspace_shapes(t: int, c: int, ff: int, splits: int):
+    """(bf16 shapes, f32 shapes) of K5's workspaces, in the C entry's
+    order: z, the bf16 hidden, the bf16 dpre; the column sums and the
+    split-K partials. No f32 (T, FF) array: the pre-activation stays in
+    registers."""
+    return (((t, c), (t, ff), (t, ff)),
+            ((mlp_bwd_col_rows(t), ff), (splits, ff * c)))
+
+
 def _mlp_bwd_kernel(h1, g, ln2s, ln2b, w1, b1, w2, dp2, ln_eps):
     name = "mlp_bwd"
     check_kernel_args(name, h1, (1, 1, 1), 1, (g, w1, w2),
@@ -174,15 +192,13 @@ def _mlp_bwd_kernel(h1, g, ln2s, ln2b, w1, b1, w2, dp2, ln_eps):
     dz = torch.empty_like(h1)
     dw1, db1, dw2 = f32(ff, c), f32(ff), f32(c, ff)
     g2 = bf(t, c)
-    w1t = w1.t().contiguous()        # (C, FF): dz = dpre . w1
-    w2t = w2.t().contiguous()        # (FF, C): dhid = g2 . w2
-    col_rows = -(-t // 128) * 4      # one row per (GEMM CTA, warp row)
-    ws = (bf(t, c), f32(t, ff), bf(t, ff), bf(t, ff), f32(col_rows, ff),
-          f32(splits, ff * c))
+    col_rows = mlp_bwd_col_rows(t)
+    bf_shapes, f32_shapes = mlp_bwd_workspace_shapes(t, c, ff, splits)
+    ws = (*(bf(*sh) for sh in bf_shapes), *(f32(*sh) for sh in f32_shapes))
     rc = cuda_lib.library().lib.lrce_mlp_bwd(
         h1.data_ptr(), g.data_ptr(), b, d, h, w, c, ff, ln_eps,
         ln2s.data_ptr(), ln2b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w1t.data_ptr(), w2t.data_ptr(),
+        w2.data_ptr(),
         None if dp2 is None else dp2.data_ptr(), dz.data_ptr(),
         dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), g2.data_ptr(),
         *(t_.data_ptr() for t_ in ws), col_rows, splits,

@@ -280,18 +280,34 @@ def sm_count(x: torch.Tensor) -> int:
 
 
 def attn_bwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
-    """Window groups of K4's grid: each CTA (group, head) walks its windows
-    and owns one f32 partial of drel and of the qkv-bias gradient, summed
-    afterwards in a fixed order. About two CTAs per SM of ``sms``."""
-    return max(1, min(nwin_total, -(-2 * sms // num_heads)))
+    """Window groups of K4's grid: each CTA (group, head) walks its windows,
+    keeps its f32 partial of drel and of the qkv-bias gradient on chip and
+    writes it once; the partials are summed afterwards in a fixed order. The
+    CTA fills an SM (ten warps, ~190 KB of shared memory), so the grid has
+    about one CTA per SM of ``sms`` and never more groups than windows."""
+    return max(1, min(nwin_total, sms // num_heads))
+
+
+SPLITK_TILE = 128           # the weight-gradient GEMM's output tile edge
+SPLITK_MIN_ROWS = 256       # rows of the reduction a split is worth
 
 
 def splitk_splits(m: int, n: int, k: int, sms: int) -> int:
     """Splits of the reduction (m rows) of a weight-gradient GEMM with an
-    (n, k) output of 64 x 64 tiles: about two CTAs per SM of ``sms``, at
+    (n, k) output of 128 x 128 tiles: about two CTAs per SM of ``sms``, at
     least 256 rows each."""
-    tiles = -(-n // 64) * -(-k // 64)
-    return max(1, min(-(-2 * sms // tiles), m // 256))
+    tiles = -(-n // SPLITK_TILE) * -(-k // SPLITK_TILE)
+    return max(1, min(-(-2 * sms // tiles), m // SPLITK_MIN_ROWS))
+
+
+def attn_bwd_workspace_shapes(t: int, c: int, num_heads: int, n: int,
+                              groups: int, splits: int):
+    """(bf16 shapes, f32 shapes) of K4's workspaces, in the C entry's
+    order: y, qkv, g (window order), dctx, ctx, dqkv; then the per-group
+    partials of drel and of the qkv-bias sums and the split-K partials."""
+    return (((t, c), (t, 3 * c), (t, c), (t, c), (t, c), (t, 3 * c)),
+            ((groups, num_heads, n, n), (groups, 3 * c),
+             (splits, 3 * c, c)))
 
 
 def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
@@ -306,6 +322,9 @@ def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
     expect_shape(name, g, x.shape)
     check_shift(name, x, shift)
     n = window[0] * window[1] * window[2]
+    if n > 160 or c // num_heads not in (16, 32):
+        raise ValueError(f"{name}: takes windows of at most 160 tokens and "
+                         f"head_dim 16 or 32, got {n} and {c // num_heads}")
     t = b * d * h * w
     sms = sm_count(x)
     groups = attn_bwd_groups(t // n, num_heads, sms)
@@ -321,16 +340,14 @@ def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
     dy = torch.empty_like(x)
     dqkv_w, dqkv_b, dproj_w = f32(3 * c, c), f32(3 * c), f32(c, c)
     drel = f32(num_heads, n, n)
-    qkv_wt = qkv_w.t().contiguous()          # (C, 3C): dy = dqkv . qkv_w
-    proj_wt = proj_w.t().contiguous()        # (C, C): dctx = g . proj_w
-    ws = (bf(t, c), bf(t, 3 * c), bf(t, c), bf(t, c), bf(t, c),
-          bf(t, 3 * c), f32(groups, num_heads, n, n), f32(groups, 3 * c),
-          f32(splits, 3 * c, c))
+    bf_shapes, f32_shapes = attn_bwd_workspace_shapes(t, c, num_heads, n,
+                                                      groups, splits)
+    ws = (*(bf(*sh) for sh in bf_shapes), *(f32(*sh) for sh in f32_shapes))
     rc = cuda_lib.library().lib.lrce_attn_bwd(
         x.data_ptr(), g.data_ptr(), b, d, h, w, c, *window, *shift,
         num_heads, ln_eps, ln_scale.data_ptr(), ln_bias.data_ptr(),
-        qkv_w.data_ptr(), qkv_b.data_ptr(), qkv_wt.data_ptr(),
-        proj_wt.data_ptr(), rel_bias.data_ptr(), _ptr(mask),
+        qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(),
+        rel_bias.data_ptr(), _ptr(mask),
         dy.data_ptr(), dqkv_w.data_ptr(), dqkv_b.data_ptr(),
         dproj_w.data_ptr(), drel.data_ptr(), *(t_.data_ptr() for t_ in ws),
         groups, splits, _stream(x))

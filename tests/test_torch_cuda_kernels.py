@@ -1,5 +1,7 @@
 """The CUDA kernels K1-K8 against their plain PyTorch versions on the card,
-bf16, at a small geometry (K7 and K5 also at C = 1024, K8 at C = 128), the
+bf16, at a small geometry (K7 and K5 also at C = 1024, K8 at C = 128; the
+shared wgmma GEMMs on their own at ragged shapes; K4 and K5 at the
+flagship's stage 0 and stage 3 widths and twice over for bit-identity), the
 K1 / K3 / K2 / K7 autograd.Functions' gradients against torch autograd
 through the plain versions, and the prefetcher's side-stream copies against
 blocking ones. Every test needs a GPU and skips without one. The file
@@ -23,6 +25,7 @@ import torch
 
 from lrce_tpu_torch.data.prefetch import device_prefetch
 from lrce_tpu_torch.models.swin3d import compute_shift_mask
+from lrce_tpu_torch.ops import gemm as G
 from lrce_tpu_torch.ops import mlp as M
 from lrce_tpu_torch.ops import nn as NN
 from lrce_tpu_torch.ops import swin_block as SB
@@ -353,3 +356,128 @@ def test_prefetch_on_a_side_stream_equals_a_blocking_copy(dev):
             assert s.item() == blocking.double().sum().item()
         seen += 1
     assert seen == len(batches)
+
+
+# ---------------------------------------------------------------------------
+# the shared GEMMs on their own, K5 and K4 at the flagship widths
+# ---------------------------------------------------------------------------
+
+def _bf(rng, dev, shape, scale=1.0):
+    return torch.tensor(scale * rng.normal(size=shape), dtype=torch.float32,
+                        device=dev).bfloat16()
+
+
+# (M, N, K): row tails against the 128-row tile (441 = 3 x 128 + 57, 882,
+# 7056 = 55 x 128 + 16), the narrowest and widest N and K of the flagship
+# (7056, 1024, 512) and (28224, 512, 2048) take the 128 x 256 tile
+GEMM_SHAPES = [(441, 384, 128), (882, 4096, 128), (7056, 384, 4096),
+               (441, 4096, 4096), (441, 192, 64), (7056, 1024, 512),
+               (28224, 512, 2048)]
+GEMM_CASES = [(m, False) for m in G.EPI_MODES] + [(G.EPI_ATTN_OUT, True)]
+
+
+@pytest.mark.parametrize("mode,b_kn", GEMM_CASES,
+                         ids=["bias", "bias-gelu", "attn-out", "mlp-out",
+                              "attn-out-kn"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gemm_epilogues_at_ragged_shapes(dev, shape, mode, b_kn):
+    m, n, k = shape
+    rng = np.random.default_rng(20)
+    a = _bf(rng, dev, (m, k))
+    b = _bf(rng, dev, (k, n) if b_kn else (n, k), 1.0 / np.sqrt(k))
+    bias = torch.tensor(0.1 * rng.normal(size=n), dtype=torch.float32,
+                        device=dev)
+    res = _bf(rng, dev, (m, n))
+    dp_rows = 147
+    dp = torch.tensor(rng.binomial(1, 0.7, -(-m // dp_rows)) / 0.7,
+                      dtype=torch.float32, device=dev)
+    kw = dict(mode=mode, bias=bias, b_kn=b_kn)
+    if mode in (G.EPI_ATTN_OUT, G.EPI_MLP_OUT):
+        kw.update(dp=dp, dp_rows=dp_rows, res=res)
+    before = G.gemm_bf16.launches
+    got = G.gemm_bf16(a, b, **kw)
+    assert G.gemm_bf16.launches == before + 1
+    _close(got, G.gemm_bf16_plain(a, b, **kw))
+
+
+def test_gemm_tile_picker(dev):
+    """The 128 x 256 tile where the tensor cores bound the product (K >= 512,
+    N a multiple of 256) and the wide tiles still fill the card."""
+    from lrce_tpu_torch.ops import cuda_lib
+
+    pick = cuda_lib.library().lib.lrce_gemm_wide_tile
+    assert pick(28224, 1536, 512, 132) == 1      # stage 2 qkv, 48 clips
+    assert pick(7056, 1024, 512, 132) == 1
+    assert pick(451584, 384, 128, 132) == 0      # stage 0: bound by bytes
+    assert pick(112896, 768, 256, 132) == 0
+    assert pick(7056, 384, 4096, 132) == 0       # N no multiple of 256
+    assert pick(441, 4096, 4096, 132) == 0       # 64 wide tiles < 132 SMs
+
+
+@pytest.mark.parametrize("shape,splits", [((3001, 384, 128), None),
+                                          ((3001, 384, 128), 1),
+                                          ((882, 4096, 1024), None),
+                                          ((7056, 64, 192), 5)],
+                         ids=["ragged", "one-split", "stage3", "narrow"])
+def test_gemm_tn_at_a_ragged_token_count(dev, shape, splits):
+    m, n, k = shape
+    rng = np.random.default_rng(21)
+    g, a = _bf(rng, dev, (m, n)), _bf(rng, dev, (m, k))
+    got = G.gemm_tn(g, a, splits)
+    _close(got, G.gemm_tn_plain(g, a), rel=1e-4, max_rel=1e-4)
+    assert torch.equal(got, G.gemm_tn(g, a, splits))
+
+
+# stage 0 (FF = 512: four column tiles) and a ragged token count
+@pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
+@pytest.mark.parametrize("dims,ff", [((3, 3, 14, 7, 128), 512),
+                                     ((3, 3, 7, 7, 1024), 4096)],
+                         ids=["c128", "c1024"])
+def test_k5_at_flagship_widths_twice(dev, dims, ff, with_dp):
+    x, g, args, dp = _mlp_args(np.random.default_rng(22), dev, dims, ff)
+    k5 = (x, g, *args[:5], dp if with_dp else None, 1e-5)
+    got = SB.mlp_bwd(*k5)
+    for a, b in zip(got, SB.mlp_bwd_plain(*k5)):
+        _close(a, b)
+    for a, b in zip(got, SB.mlp_bwd(*k5)):
+        assert torch.equal(a, b)    # fixed-order sums: bit-identical
+
+
+def _k4_case(rng, dev, dims, heads, window, shift):
+    b, d, h, w, c = dims
+    n = window[0] * window[1] * window[2]
+    x, g = _bf(rng, dev, dims), _bf(rng, dev, dims)
+
+    def vec(m, scale, base=0.0):
+        return torch.tensor(base + scale * rng.normal(size=m),
+                            dtype=torch.float32, device=dev)
+
+    mask = None
+    if any(shift):
+        nwin = (d // window[0], h // window[1], w // window[2])
+        mask = torch.from_numpy(compute_shift_mask((d, h, w), window, shift)
+                                .reshape(*nwin, n, n)).to(dev)
+    return (x, g, vec(c, 0.2, 1.0), vec(c, 0.1),
+            _bf(rng, dev, (3 * c, c), 1.0 / np.sqrt(c)), vec(3 * c, 0.02),
+            _bf(rng, dev, (c, c), 1.0 / np.sqrt(c)),
+            vec((heads, n, n), 1.0), mask, window, heads, 1e-5, shift)
+
+
+# stage 0: 5 clips x 8 windows = 40 windows against 33 groups of 4 heads on
+# 132 SMs, and stage 3: 5 windows against 4 groups of 32 heads: window
+# counts that are no multiple of the groups
+@pytest.mark.parametrize("shift", [(0, 0, 0), (0, 3, 3)],
+                         ids=["unmasked", "masked"])
+@pytest.mark.parametrize("dims,heads", [((5, 3, 28, 14, 128), 4),
+                                        ((5, 3, 7, 7, 1024), 32)],
+                         ids=["stage0", "stage3"])
+def test_k4_at_flagship_widths_twice(dev, dims, heads, shift):
+    case = _k4_case(np.random.default_rng(23), dev, dims, heads, (3, 7, 7),
+                    shift)
+    nwin = dims[0] * (dims[2] // 7) * (dims[3] // 7)
+    assert nwin % WA.attn_bwd_groups(nwin, heads, WA.sm_count(case[0]))
+    got = WA.window_attention_bwd(*case)
+    for a, b in zip(got, WA.window_attention_bwd_plain(*case)):
+        _close(a, b)
+    for a, b in zip(got, WA.window_attention_bwd(*case)):
+        assert torch.equal(a, b)    # fixed-order sums: bit-identical
