@@ -17,6 +17,17 @@ Phases, each raising on failure (the script then exits non-zero):
      f32 product of the same bf16 operands, each with its time, its bound
      and the time of the library's product of the same operands (a
      yardstick: the port never calls it), printed as one JSON line;
+  2c. attn_core: the attention-forward CTA that K6, K2, K1 and K3 share, on
+     its own (``ops/window_attn.window_attention_core``), against its plain
+     version at stages 0-3, at 6 and at 48 clips, unmasked and (stages 0-2)
+     with the shift mask; its time, its bound (qkv read, ctx written, the
+     bias once a head, the mask once) and the time of the library's
+     ``scaled_dot_product_attention`` on contiguous per-head operands with
+     the bias (+ mask) as an additive f32 mask (a yardstick: the port never
+     calls it), per call and summed over the 46 calls of a train step, as
+     one JSON line; one shape outside the CTA's range (N = 392) through K6
+     against plain; and the LayerNorm (+ window gather) alone at every
+     stage (``ops/gemm.ln_rows``);
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      flagship shapes (bf16), at 6 clips (one request) and at the train
      step's 48: K1, K3, K2 (forward); K6 with and without the mask at
@@ -29,7 +40,10 @@ Phases, each raising on failure (the script then exits non-zero):
      each kernel's sums over the calls of one step at 6 and at 48 clips. Then
      the K1, K3, K2 and K7 autograd.Functions' gradients against torch
      autograd through their plain versions, one block per stage, at 6 and
-     at 48 clips;
+     at 48 clips. Then K1, K3, K6 and K2 by piece: each per-call time beside
+     the times of its pieces taken alone above (LN1 + gather, qkv, the CTA,
+     proj, LN2, fc1, fc2), the library's product for each GEMM, and the
+     remainder, as one JSON line;
   4. forward: the flagship LRCEModel (Video Swin-B, BERT-base, 12-layer
      fusion, open-ended head, random weights from a seed) on the card in
      bf16 answers 3 requests of 2 questions x 3 clips x 5 x 224 x 224 uint8
@@ -402,6 +416,162 @@ def phase_gemms():
     return out
 
 
+# the attention-forward CTA's calls in one train step, per stage: once per
+# block in the forward (K1, K3, K2) and once more in K6's recompute at stages
+# 0-2; half of them (the shifted blocks) with the mask at stages 0-2
+ATTN_CORE_CALLS = (4, 4, 36, 2)
+
+
+def phase_attn_core():
+    """The attention-forward CTA alone against its plain version, timed
+    between two timings of the library's attention; the LayerNorm alone."""
+    import torch.nn.functional as F
+
+    from lrce_tpu_torch.models.swin3d import compute_shift_mask
+    from lrce_tpu_torch.ops import gemm as G
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    gen = torch.Generator().manual_seed(77)
+    n = WINDOW[0] * WINDOW[1] * WINDOW[2]
+    rows, ln_ms = [], {}
+    for clips in (N_CLIPS, TRAIN_CLIPS):
+        iters = 5 if clips == N_CLIPS else 10
+        for stage, (d, h, w, c, heads) in enumerate(STAGES):
+            nwin_clip = (d // WINDOW[0]) * (h // WINDOW[1]) * (w // WINDOW[2])
+            nwin = clips * nwin_clip
+            t, hd = nwin * n, c // heads
+            qkv = _seeded((nwin, n, 3 * c), gen)
+            rel = torch.randn((heads, n, n), generator=gen).cuda()
+            # the library's operands: contiguous (windows, heads, N, hd)
+            q, k, v = (a.contiguous() for a in qkv.reshape(
+                nwin, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
+            for masked in ((False, True) if stage < 3 else (False,)):
+                mask = None
+                lq, lk, lv, add = q, k, v, rel[None]
+                if masked:
+                    mask = torch.from_numpy(compute_shift_mask(
+                        (d, h, w), WINDOW, SHIFT)).cuda()
+                    # one additive mask per (window of a clip, head): the
+                    # clips become the batch, the windows join the heads
+                    lq, lk, lv = (a.reshape(clips, nwin_clip * heads, n, hd)
+                                  for a in (q, k, v))
+                    add = (rel[None] + mask[:, None]).reshape(
+                        1, nwin_clip * heads, n, n)
+                label = (f"attn_core stage {stage}, {clips} clips, "
+                         f"{'masked' if masked else 'unmasked'} ({nwin} "
+                         f"windows x {heads} heads, N {n}, head_dim {hd})")
+                got = WA.window_attention_core(qkv, rel, mask, heads)
+                err = _compare(label, got, WA.window_attention_core_plain(
+                    qkv, rel, mask, heads))
+                del got
+
+                def run_lib():
+                    return F.scaled_dot_product_attention(lq, lk, lv,
+                                                          attn_mask=add)
+
+                def run_k():
+                    return WA.window_attention_core(qkv, rel, mask, heads)
+
+                lib, k1, k2, lib2 = (_cuda_time_ms(f, iters) for f in (
+                    run_lib, run_k, run_k, run_lib))
+                work = (4 * t * n * c, 2 * t * 4 * c + heads * n * n * 4
+                        + (nwin_clip * n * n * 4 if masked else 0))
+                calls = ATTN_CORE_CALLS[stage] // (2 if stage < 3 else 1)
+                rows.append((clips, stage, masked, err, (k1 + k2) / 2,
+                             (lib + lib2) / 2, work, calls))
+                del mask, add, lq, lk, lv
+            del qkv, q, k, v
+            # LN1 + gather (unshifted, shifted) and LN2 of a block, alone
+            x = _seeded((clips, d, h, w, c), gen)
+            gam = 1.0 + 0.1 * torch.randn((c,), generator=gen).cuda()
+            bet = 0.1 * torch.randn((c,), generator=gen).cuda()
+            for kind, kw in (("ln1", dict(window=WINDOW, gather=True)),
+                             ("ln1_shift", dict(window=WINDOW, shift=SHIFT,
+                                                gather=True)),
+                             ("ln2", dict())):
+                _compare(f"ln_rows {kind} stage {stage}, {clips} clips",
+                         G.ln_rows(x, gam, bet, **kw),
+                         G.ln_rows_plain(x, gam, bet, **kw))
+                ln_ms[(clips, stage, kind)] = _cuda_time_ms(
+                    lambda: G.ln_rows(x, gam, bet, **kw), iters)
+            del x
+            torch.cuda.empty_cache()
+    require(WA.window_attention_core.launches > 0 and G.ln_rows.launches > 0,
+            "the attention CTA's or the LayerNorm's wrapper launched nothing")
+    out, sums = [], {}
+    for clips, stage, masked, err, ms, lib, work, calls in rows:
+        bound, by = _bound_ms(work)
+        print(f"[attn_core] stage {stage}, {clips} clips, "
+              f"{'masked' if masked else 'unmasked'}: kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}: {work[0] / 1e9:.3f} GFLOP, "
+              f"{work[1] / 1e6:.3f} MB), library {lib:.4f} ms; {calls} call(s) "
+              "a step", flush=True)
+        tot = sums.setdefault(clips, [0.0, 0.0, 0.0])
+        for i, val in enumerate((ms, bound, lib)):
+            tot[i] += calls * val
+        out.append({"clips": clips, "stage": stage, "masked": masked,
+                    "max_abs_err": err, "ms": ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": lib,
+                    "calls_per_step": calls})
+    for clips, (ms, bound, lib) in sums.items():
+        print(f"[attn_core] the {sum(ATTN_CORE_CALLS)} calls of one train step "
+              f"at {clips} clips: kernel {ms:.4f} ms, bound {bound:.4f} ms, "
+              f"library {lib:.4f} ms", flush=True)
+    for (clips, stage, kind), ms in ln_ms.items():
+        print(f"[attn_core] ln_rows {kind} stage {stage}, {clips} clips: "
+              f"{ms:.4f} ms", flush=True)
+
+    # a shape outside the CTA's range: a 16-frame clip's window (8, 7, 7),
+    # N = 392, through K6; the launcher's shape rule takes the WMMA CTA
+    window, shift, c, heads = (8, 7, 7), (4, 3, 3), 128, 4
+    n_big = window[0] * window[1] * window[2]
+    x = _seeded((2, 8, 14, 14, c), gen)
+    p = _block_weights(c, heads, n_big, gen, None)
+    mask = torch.from_numpy(compute_shift_mask((8, 14, 14), window, shift))
+    k6 = (x, *(p[k] for k in ATTN_KEYS), mask.reshape(1, 2, 2, n_big,
+                                                      n_big).cuda(),
+          window, heads, 1e-5, shift)
+    _compare(f"K6 beyond the CTA's range, window {window} (N {n_big})",
+             WA.fused_window_attention(*k6), WA.window_attention_plain(*k6))
+    print(json.dumps({"attn_core": out}), flush=True)
+    return out, ln_ms
+
+
+def phase_by_piece(gemms, attn_rows, ln_ms, call_ms):
+    """K1, K3, K6 and K2 per call beside the times of their pieces taken
+    alone (the GEMMs by phase_gemms, the CTA and the LayerNorms by
+    phase_attn_core): what is left over is launch gaps, the wrapper's
+    allocations and, for K6 and K2, the cheaper proj epilogue (the proj timed
+    alone is K1's, with dp1 and the residual)."""
+    gemm = {(g["name"], g["clips"], g["stage"]): g for g in gemms}
+    cta = {(a["clips"], a["stage"], a["masked"]): a["ms"] for a in attn_rows}
+    out = []
+    for (kernel, clips, stage, masked), total in sorted(call_ms.items()):
+        names = ["qkv", "proj"] + (["fc1", "fc2"] if kernel in ("K1", "K3")
+                                   else [])
+        pieces = {"ln1_gather": ln_ms[(clips, stage,
+                                       "ln1_shift" if masked else "ln1")],
+                  "cta": cta[(clips, stage, masked)]}
+        if kernel in ("K1", "K3"):
+            pieces["ln2"] = ln_ms[(clips, stage, "ln2")]
+        for name in names:
+            pieces[name] = gemm[(name, clips, stage)]["ms"]
+        library = {name: gemm[(name, clips, stage)]["library_ms"]
+                   for name in names}
+        rest = total - sum(pieces.values())
+        print(f"[by_piece] {kernel} stage {stage}, {clips} clips, "
+              f"{'masked' if masked else 'unmasked'}: {total:.4f} ms = "
+              + " + ".join(f"{k} {v:.4f}" for k, v in pieces.items())
+              + f" + remainder {rest:.4f}; library products "
+              + ", ".join(f"{k} {v:.4f}" for k, v in library.items()),
+              flush=True)
+        out.append({"kernel": kernel, "clips": clips, "stage": stage,
+                    "masked": masked, "ms": total, "pieces": pieces,
+                    "remainder_ms": rest, "library_ms": library})
+    print(json.dumps({"by_piece": out}), flush=True)
+    return out
+
+
 def phase_kernels():
     from lrce_tpu_torch.models.swin3d import compute_shift_mask
     from lrce_tpu_torch.ops import swin_block as SB
@@ -421,10 +591,14 @@ def phase_kernels():
     by_clips = {N_CLIPS: totals(), TRAIN_CLIPS: totals()}
     per_call = []
 
-    def record(kernel, calls, label, run_k, run_p, work, timed=None):
+    call_ms = {}    # (kernel, clips, stage, masked) -> per-call kernel ms
+
+    def record(kernel, calls, label, run_k, run_p, work, timed=None,
+               piece_key=None):
         """Compare every output; time when ``timed`` (default: when a step
         at this clip count makes ``calls`` > 0 calls, which go into its
-        totals). work: the call's (operations, bytes), for its bound."""
+        totals). work: the call's (operations, bytes), for its bound.
+        piece_key: (stage, masked) of a call that phase_by_piece splits."""
         results = by_clips[clips]
         got, want = run_k(), run_p()
         if isinstance(got, torch.Tensor):
@@ -451,6 +625,8 @@ def phase_kernels():
         r["gflop"] += calls * work[0] / 1e9
         r["mb"] += calls * work[1] / 1e6
         per_call.append((kernel, label, tk, tp, calls, bound))
+        if piece_key is not None:
+            call_ms[(kernel, clips, *piece_key)] = tk
         where = (f"{calls} call(s) per forward or backward of a {clips}-clip "
                  "step" if calls else "outside the step's totals")
         print(f"[kernels] {kernel} {label}: kernel {tk:.4f} ms, plain "
@@ -479,7 +655,8 @@ def phase_kernels():
                 record("K2", CALLS_PER_FORWARD["K2"][stage], label,
                        lambda: WA.fused_window_attention_hsplit(*args),
                        lambda: WA.window_attention_plain(*args),
-                       _work("K2", clips, stage), timed=True)
+                       _work("K2", clips, stage), timed=True,
+                       piece_key=(stage, False))
                 k4 = (x, g, *bwd, None, WINDOW, heads, 1e-5, NO_SHIFT)
                 record("K4", CALLS_PER_BACKWARD["K4"][stage],
                        label, lambda: WA.window_attention_bwd(*k4),
@@ -518,7 +695,8 @@ def phase_kernels():
             record("K1", half, label,
                    lambda: SB.fused_swin_block(*k1),
                    lambda: SB.swin_block_plain(*k1),
-                   _work("K1", clips, stage), timed=True)
+                   _work("K1", clips, stage), timed=True,
+                   piece_key=(stage, False))
             q = _block_weights(c, heads, n, gen, 1)
             k3 = (x, *(q[k] for k in ATTN_KEYS), mask,
                   *(q[k] for k in MLP_KEYS), None, None, WINDOW, heads,
@@ -526,7 +704,8 @@ def phase_kernels():
             record("K3", half, label + " k=1",
                    lambda: SB.fused_swin_pair(*k3),
                    lambda: SB.swin_pair_plain(*k3),
-                   _work("K3", clips, stage, masked=True), timed=True)
+                   _work("K3", clips, stage, masked=True), timed=True,
+                   piece_key=(stage, True))
             del q
             if stage == 0:
                 # K8 at the shape it was written for, without autograd
@@ -547,7 +726,8 @@ def phase_kernels():
                 record("K6", half, tag,
                        lambda: WA.fused_window_attention(*k6),
                        lambda: WA.window_attention_plain(*k6),
-                       _work("K6", clips, stage, masked=masked), timed=True)
+                       _work("K6", clips, stage, masked=masked), timed=True,
+                       piece_key=(stage, masked))
                 k4 = (x, g, *bwd, m, WINDOW, heads, 1e-5, s)
                 record("K4", half, tag,
                        lambda: WA.window_attention_bwd(*k4),
@@ -593,7 +773,7 @@ def phase_kernels():
     for k, r in by_clips[N_CLIPS].items():
         r["max_abs_err"] = max(r["max_abs_err"],
                                by_clips[TRAIN_CLIPS][k]["max_abs_err"])
-    return by_clips[N_CLIPS], by_clips[TRAIN_CLIPS], per_call
+    return by_clips[N_CLIPS], by_clips[TRAIN_CLIPS], per_call, call_ms
 
 
 def _grads(fn, x, leaves, g):
@@ -1127,8 +1307,10 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     lib = phase_build()
-    phase_gemms()
-    results, results48, per_call = phase_kernels()
+    gemms = phase_gemms()
+    attn_rows, ln_ms = phase_attn_core()
+    results, results48, per_call, call_ms = phase_kernels()
+    phase_by_piece(gemms, attn_rows, ln_ms, call_ms)
     phase_function_grads()
     fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
     train_launches, step_ms, peak = phase_train()

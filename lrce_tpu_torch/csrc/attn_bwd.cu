@@ -67,51 +67,6 @@ namespace {
 constexpr int BW_MAX_NB = 20;     // key blocks of 8: up to 160 padded tokens
 constexpr int BW_MAX_WARPS = 10;  // one warp per 16 query rows
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// d (16 x 8, f32) += a (16 x 16, row) . b (16 x 8, col), bf16 operands.
-// Lane l = 4 g + t holds d[0], d[1] = row g, columns 2t, 2t + 1 and d[2],
-// d[3] = the same columns of row g + 8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Byte offset of 16-byte chunk `chunk` of token row `row` in a tile of HD
-// bf16 per row; the XOR spreads 8 consecutive rows over all 8 16-byte
-// groups of a 128-byte line.
-template <int HD>
-__device__ __forceinline__ uint32_t tok_off(int row, int chunk) {
-  static_assert(HD == 16 || HD == 32, "head_dim 16 or 32");
-  if constexpr (HD == 16)
-    return (uint32_t)(row * 32 + ((chunk ^ ((row >> 2) & 1)) << 4));
-  else
-    return (uint32_t)(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
-}
-
 size_t bwd_smem_bytes(int Np, int hd) {
   return (size_t)8 * Np * hd * sizeof(bf16) +          // q k v dctx, twice
          (size_t)2 * Np * (Np + 8) * sizeof(bf16) +    // bf16 P and dS

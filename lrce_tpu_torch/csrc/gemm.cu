@@ -1,6 +1,6 @@
-// Entry points of the two shared GEMMs on their own, so that each can be
-// held against an f32 product of the same bf16 operands and timed at the
-// shapes K1-K8 give it (see swin_common.cuh (c) and (d)).
+// Entry points of the two shared GEMMs and of the LayerNorm (+ window
+// gather) on their own, so that each can be held against its plain version
+// and timed at the shapes K1-K8 give it (see swin_common.cuh (a), (c), (d)).
 #include "swin_common.cuh"
 
 using namespace lrce;
@@ -39,6 +39,22 @@ int lrce_gemm_tn(const void* g, const void* a, void* out, int M, int N, int K,
                         static_cast<const bf16*>(a), static_cast<float*>(out),
                         M, N, K, splits, static_cast<float*>(ws),
                         reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// out (T, C) bf16 = LayerNorm over C of the rows of x (B, D, H, W, C) bf16,
+// gamma and beta f32. gather != 0: row r of out is window token r of the
+// window (wd, wh, ww), read at its position under the cyclic shift (sd, sh,
+// sw): the LN1 of a block. gather == 0: token order, the LN2 of a block.
+int lrce_ln_rows(const void* x, void* out, int B, int D, int H, int W, int C,
+                 int wd, int wh, int ww, int sd, int sh, int sw, float eps,
+                 const void* gamma, const void* beta, int gather,
+                 void* stream_ptr) {
+  const WinGeom g = make_geom(B, D, H, W, C, wd, wh, ww, sd, sh, sw);
+  return launch_ln(static_cast<const bf16*>(x), static_cast<bf16*>(out),
+                   static_cast<const float*>(gamma),
+                   static_cast<const float*>(beta),
+                   (long long)B * D * H * W, eps, g, gather,
+                   reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // extern "C"

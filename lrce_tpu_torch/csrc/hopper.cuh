@@ -1,12 +1,15 @@
 // Hopper (sm_90a) primitives as inline PTX, used by the GEMMs of
-// swin_common.cu and the fused MLP-backward kernel of mlp_bwd.cu:
+// swin_common.cu, the fused MLP-backward kernel of mlp_bwd.cu and the
+// attention CTAs of attn_fwd.cu and attn_bwd.cu:
 //   - cp.async 16-byte copies (zero-filled when the source is out of range)
 //     into shared-memory tiles whose rows are 128 bytes, swizzled as wgmma's
 //     128-byte mode expects (16-byte chunk c of row r lies at c ^ (r & 7));
 //   - shared-memory matrix descriptors for such tiles, read either along
 //     their rows (the reduction axis contiguous, "K-major") or across them
 //     (the reduction axis is the row index, "MN-major", the transpose bit);
-//   - wgmma.mma_async m64n128k16, bf16 x bf16 -> f32 in registers.
+//   - wgmma.mma_async m64n128k16, bf16 x bf16 -> f32 in registers;
+//   - ldmatrix, mma.sync m16n8k16 and the XOR-swizzled token tiles of a
+//     head (rows of 32 or 64 bytes) for the attention CTAs.
 // The accumulator of a warpgroup (4 warps): thread (warp w, lane l) holds,
 // for j = 0..15, d[4j], d[4j+1] = row 16w + l/4, columns 8j + 2(l%4) + {0,1}
 // and d[4j+2], d[4j+3] = the same columns of row 16w + l/4 + 8.
@@ -117,6 +120,56 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core pieces (ldmatrix + mma.sync m16n8k16) for products
+// too small for wgmma's 64-row tiles: the attention CTAs of attn_fwd.cu and
+// attn_bwd.cu (147 x 147 x 32 per window and head).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, row) . b (16 x 8, col), bf16 operands.
+// Lane l = 4 g + t holds d[0], d[1] = row g, columns 2t, 2t + 1 and d[2],
+// d[3] = the same columns of row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk `chunk` of token row `row` in a tile of HD
+// bf16 per row; the XOR spreads 8 consecutive rows over all 8 16-byte
+// groups of a 128-byte line.
+template <int HD>
+__device__ __forceinline__ uint32_t tok_off(int row, int chunk) {
+  static_assert(HD == 16 || HD == 32, "head_dim 16 or 32");
+  if constexpr (HD == 16)
+    return (uint32_t)(row * 32 + ((chunk ^ ((row >> 2) & 1)) << 4));
+  else
+    return (uint32_t)(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
 }
 
 // ---------------------------------------------------------------------------

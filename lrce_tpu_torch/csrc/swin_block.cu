@@ -13,12 +13,15 @@
 //
 // What bounds it on the H100: the four GEMMs (qkv, proj, fc1, fc2) are
 // 72% (stage 0) to 91% (stage 2) of the block's operations and run on the
-// tensor cores through the shared wgmma GEMM (swin_common.cu); the (T, 4C)
-// GELU hidden and the (T, 3C) qkv make one round trip through device memory
-// each, which at C = 128 (stage 0) is the larger
-// cost. This first version keeps the pieces as separate launches on one
-// stream and keeps nothing on chip across them; fusing LN into the GEMM's
-// A-load and fc1 into fc2 are the next steps.
+// tensor cores through the shared wgmma GEMM (swin_common.cu); the
+// attention between qkv and proj is the CTA of attn_fwd.cu (mma.sync, S and
+// P in registers, several windows per CTA, the head's bias resident in
+// shared memory, the mask as labels), bound by its softmax arithmetic. The
+// (T, 4C) GELU hidden and the (T, 3C) qkv make one round trip through
+// device memory each, which at C = 128 (stage 0) is the larger cost. The
+// pieces are separate launches on one stream and keep nothing on chip
+// across them; fusing LN into the GEMM's A-load and fc1 into fc2 are the
+// next steps.
 #include "swin_common.cuh"
 
 using namespace lrce;
@@ -26,17 +29,21 @@ using namespace lrce;
 extern "C" {
 
 // One block. ws_tc: (T, C) bf16 scratch; ws_big: (T, max(3C, ff)) bf16
-// scratch; ws_h1: (T, C) bf16 scratch. out must not alias x.
+// scratch; ws_h1: (T, C) bf16 scratch. out must not alias x. mask_labels,
+// mask_off: the mask as labels, or both null; groups: the attention CTA's
+// window groups (launch_attn, swin_common.cuh).
 int lrce_swin_block_fwd(const void* x, void* out, int B, int D, int H, int W,
                         int C, int wd, int wh, int ww, int sd, int sh, int sw,
                         int num_heads, int ff, float eps, const void* ln1s,
                         const void* ln1b, const void* qkv_w,
                         const void* qkv_b, const void* proj_w,
                         const void* proj_b, const void* rel_bias,
-                        const void* mask, const void* ln2s, const void* ln2b,
+                        const void* mask, const void* mask_labels,
+                        const void* mask_off, const void* ln2s,
+                        const void* ln2b,
                         const void* w1, const void* b1, const void* w2,
                         const void* b2, const void* dp1, const void* dp2,
-                        void* ws_tc, void* ws_big, void* ws_h1,
+                        int groups, void* ws_tc, void* ws_big, void* ws_h1,
                         void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const WinGeom g = make_geom(B, D, H, W, C, wd, wh, ww, sd, sh, sw);
@@ -52,7 +59,10 @@ int lrce_swin_block_fwd(const void* x, void* out, int B, int D, int H, int W,
                            static_cast<const bf16*>(qkv_w),
                            static_cast<const float*>(qkv_b),
                            static_cast<const float*>(rel_bias),
-                           static_cast<const float*>(mask), tc, big, stream);
+                           static_cast<const float*>(mask),
+                           static_cast<const int*>(mask_labels),
+                           static_cast<const float*>(mask_off), groups, tc,
+                           big, stream);
   if (rc) return rc;
 
   // proj + bias, x dp1, bf16, + x (bf16), back to spatial order -> h1

@@ -1,6 +1,7 @@
-// Kernels (a) LN + window gather, (b) window attention, (c) the bf16 wgmma
-// GEMM with epilogues, (d) the split-K weight-gradient wgmma GEMM, and their
-// launchers; see swin_common.cuh.
+// Kernels (a) LN + window gather, (b) window attention for the shapes that
+// attn_fwd.cu does not take, (c) the bf16 wgmma GEMM with epilogues, (d) the
+// split-K weight-gradient wgmma GEMM, and their launchers; see
+// swin_common.cuh.
 #include "swin_common.cuh"
 
 #include "hopper.cuh"
@@ -43,47 +44,77 @@ __device__ __forceinline__ long long win_row_to_token(const WinGeom& g,
 }
 
 // ---------------------------------------------------------------------------
-// (a) LayerNorm over C (C % 32 == 0, C <= 1024), one warp per row, f32 math,
-// bf16 out. gather != 0: output row r is window token r (win_row_to_token).
+// (a) LayerNorm over C (C % 8 == 0, C <= 1024), f32 math, bf16 out. kLanes
+// lanes share a row (16 for C <= 128, two rows a warp; else 32) and each
+// moves 16 bytes at a time: lane l holds the 8-element vectors l, l +
+// kLanes, ... of its row, so a warp instruction reads or writes whole
+// 256- or 512-byte row segments. gather != 0: output row r is window token r
+// (win_row_to_token). Bound by bytes (each row read and written once): LN1 +
+// gather of a stage-0 block at 48 clips (451,584 rows of 128) takes 0.17 ms
+// and LN2 0.11 ms on an NVIDIA H100 80GB HBM3, 700.00 W, against a bound of
+// 0.069 ms; with one warp a row and 2-byte accesses they took 0.45 and 0.31.
 // ---------------------------------------------------------------------------
 constexpr int LN_WARPS = 8;
+constexpr int LN_MAX_VECS = 4;  // 8-element vectors a lane: C <= 1024
 
+template <int kLanes>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int kLanes>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                const float* __restrict__ gamma, const float* __restrict__ beta,
                long long rows, float eps, WinGeom g, int gather) {
-  long long row = (long long)blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  int lane = threadIdx.x & 31;
-  if (row >= rows) return;
+  constexpr int kRows = 32 / kLanes;  // rows a warp
+  const int lane = threadIdx.x & 31, l = lane % kLanes;
+  const long long row =
+      ((long long)blockIdx.x * LN_WARPS + (threadIdx.x >> 5)) * kRows +
+      lane / kLanes;
+  const bool live = row < rows;  // every lane stays for the shuffles
   const int C = g.C;
-  const int per = C >> 5;
-  long long src = gather ? win_row_to_token(g, row) : row;
+  const int nv = C >> 3;
+  const long long src = !live ? 0 : gather ? win_row_to_token(g, row) : row;
   const bf16* xr = x + src * C;
-  float v[32];
+  float v[LN_MAX_VECS][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    if (i < per) {
-      v[i] = __bfloat162float(xr[lane + 32 * i]);
-      s += v[i];
+  for (int i = 0; i < LN_MAX_VECS; ++i) {
+    const int vec = l + kLanes * i;
+    if (live && vec < nv) {
+      load8(xr + vec * 8, v[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += v[i][e];
     }
   }
-  const float mean = warp_sum(s) / (float)C;
+  const float mean = lanes_sum<kLanes>(s) / (float)C;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    if (i < per) {
-      v[i] -= mean;
-      q += v[i] * v[i];
+  for (int i = 0; i < LN_MAX_VECS; ++i) {
+    if (live && l + kLanes * i < nv) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[i][e] -= mean;
+        q += v[i][e] * v[i][e];
+      }
     }
   }
-  const float rstd = rsqrtf(warp_sum(q) / (float)C + eps);
+  const float rstd = rsqrtf(lanes_sum<kLanes>(q) / (float)C + eps);
   bf16* orow = out + row * C;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    if (i < per) {
-      int c = lane + 32 * i;
-      orow[c] = __float2bfloat16(v[i] * rstd * gamma[c] + beta[c]);
+  for (int i = 0; i < LN_MAX_VECS; ++i) {
+    const int vec = l + kLanes * i;
+    if (live && vec < nv) {
+      float gm[8], bt[8];
+      load8(gamma + vec * 8, gm);
+      load8(beta + vec * 8, bt);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[i][e] = v[i][e] * rstd * gm[e] + bt[e];
+      store8(orow + vec * 8, v[i]);
     }
   }
 }
@@ -93,10 +124,17 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
 int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
               long long rows, float eps, const WinGeom& g, int gather,
               cudaStream_t stream) {
-  if (g.C % 32 != 0 || g.C > 1024) return (int)cudaErrorInvalidValue;
-  long long blocks = (rows + LN_WARPS - 1) / LN_WARPS;
-  ln_rows_kernel<<<(unsigned)blocks, LN_WARPS * 32, 0, stream>>>(
-      x, out, gamma, beta, rows, eps, g, gather);
+  if (g.C % 8 != 0 || g.C > 8 * 32 * LN_MAX_VECS)
+    return (int)cudaErrorInvalidValue;
+  if (g.C <= 128) {
+    const long long per = LN_WARPS * 2;
+    ln_rows_kernel<16><<<(unsigned)((rows + per - 1) / per), LN_WARPS * 32, 0,
+                         stream>>>(x, out, gamma, beta, rows, eps, g, gather);
+  } else {
+    ln_rows_kernel<32><<<(unsigned)((rows + LN_WARPS - 1) / LN_WARPS),
+                         LN_WARPS * 32, 0, stream>>>(x, out, gamma, beta, rows,
+                                                     eps, g, gather);
+  }
   LRCE_CHECK_LAUNCH();
   return 0;
 }
@@ -104,7 +142,10 @@ int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
 namespace {
 
 // ---------------------------------------------------------------------------
-// (b) Window attention. qkv: (nwin_total*N, 3C) bf16 in window order, packed
+// (b) Window attention for any head_dim that is a multiple of 16 and any
+// window whose tiles fit shared memory (head_dim 16 or 32 with at most 160
+// tokens runs attn_fwd_kernel of attn_fwd.cu instead: launch_attn chooses).
+// qkv: (nwin_total*N, 3C) bf16 in window order, packed
 // [q | k | v] with head h at columns h*hd. One CTA per (window, head):
 // q, k, v of the window sit in shared memory padded to Np = ceil16(N) rows.
 // Each warp takes 16 query rows at a time: S = q k^T (WMMA, f32) into its
@@ -249,9 +290,9 @@ int attn_warps(int Np, int hd) {
 
 }  // namespace
 
-int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
-                const float* mask, long long nwin_total, int nwin_clip, int N,
-                int C, int num_heads, cudaStream_t stream) {
+int launch_attn_wmma(const bf16* qkv, bf16* ctx, const float* rel_bias,
+                     const float* mask, long long nwin_total, int nwin_clip,
+                     int N, int C, int num_heads, cudaStream_t stream) {
   const int hd = C / num_heads;
   const int Np = (N + 15) / 16 * 16;
   if (hd % 16 != 0 || hd > Np) return (int)cudaErrorInvalidValue;
@@ -759,12 +800,13 @@ Epilogue epi_bias(const float* bias) {
 }  // namespace
 
 // LN1 (window gather) -> qkv GEMM -> window attention. Leaves ctx (window
-// order) in ws_tc. Shared by K1/K3 and K2.
+// order) in ws_tc. Shared by K1/K3, K2 and K6.
 int attention_front(const bf16* x, const WinGeom& g, int num_heads, float eps,
                     const float* ln_s, const float* ln_b, const bf16* qkv_w,
                     const float* qkv_b, const float* rel_bias,
-                    const float* mask, bf16* ws_tc, bf16* ws_qkv,
-                    cudaStream_t stream) {
+                    const float* mask, const int* mask_labels,
+                    const float* mask_off, int groups, bf16* ws_tc,
+                    bf16* ws_qkv, cudaStream_t stream) {
   const long long T = (long long)g.B * g.D * g.H * g.W;
   int rc = launch_ln(x, ws_tc, ln_s, ln_b, T, eps, g, 1, stream);
   if (rc) return rc;
@@ -772,8 +814,9 @@ int attention_front(const bf16* x, const WinGeom& g, int num_heads, float eps,
                    stream);
   if (rc) return rc;
   const long long nwin_clip = (long long)g.nd * g.nh * g.nw;
-  return launch_attn(ws_qkv, ws_tc, rel_bias, mask, T / g.N, (int)nwin_clip,
-                     g.N, g.C, num_heads, stream);
+  return launch_attn(ws_qkv, ws_tc, rel_bias, mask, mask_labels, mask_off,
+                     T / g.N, (int)nwin_clip, g.N, g.C, num_heads, groups,
+                     stream);
 }
 
 

@@ -3,7 +3,10 @@
 //   (a) LayerNorm with a window gather: row r of the output is window token
 //       r, read from its spatial position, cyclic shift included; and the
 //       same gather without the LayerNorm;
-//   (b) window attention, one CTA per (window, head);
+//   (b) window attention: for head_dim 16 or 32 and windows of at most 160
+//       tokens a CTA per (window group, head) on mma.sync with S and P in
+//       registers (attn_fwd.cu); for other shapes one WMMA CTA per (window,
+//       head) (swin_common.cu);
 //   (c) a bf16 tensor-core GEMM (wgmma fed by a cp.async ring, f32
 //       accumulate in registers), out = A . W^T or A . B, with epilogues
 //       applied from the registers: +bias; +bias and exact-erf GELU; +bias,
@@ -93,10 +96,22 @@ constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory per CTA
 int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
               long long rows, float eps, const WinGeom& g, int gather,
               cudaStream_t stream);
-// (b) window attention over packed (nwin_total * N, 3C) qkv -> ctx (., C).
+// (b) window attention over packed (nwin_total * N, 3C) qkv -> ctx (., C);
+//     mask (nwin_clip, N, N) f32 or null. The shift mask may also come as
+//     labels: mask_labels (nwin_clip, ceil16(N)) int32 and mask_off
+//     (nwin_clip) f32 say that window w adds mask_off[w] to the logit of
+//     (i, j) where labels[w][i] != labels[w][j] and nothing elsewhere; a NaN
+//     in mask_off[w] says that w's mask is not of that form and is read as
+//     it lies. Both null: every window reads the dense mask. groups: window
+//     groups of attn_fwd_kernel's grid, 1 .. nwin_total (unused where the
+//     shape takes launch_attn_wmma, see attn_fwd.cu).
 int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
-                const float* mask, long long nwin_total, int nwin_clip, int N,
-                int C, int num_heads, cudaStream_t stream);
+                const float* mask, const int* mask_labels,
+                const float* mask_off, long long nwin_total, int nwin_clip,
+                int N, int C, int num_heads, int groups, cudaStream_t stream);
+int launch_attn_wmma(const bf16* qkv, bf16* ctx, const float* rel_bias,
+                     const float* mask, long long nwin_total, int nwin_clip,
+                     int N, int C, int num_heads, cudaStream_t stream);
 // (c) out = epilogue(A (M x K) . W^T) with Bm = W (N x K), or, with b_kn
 //     (EPI_ATTN_OUT only), epilogue(A . Bm) with Bm (K x N); all row-major,
 //     K % 8 == 0, N % 8 == 0.
@@ -127,7 +142,8 @@ int launch_sum_parts(const float* part, float* out, int parts, long long n,
 int attention_front(const bf16* x, const WinGeom& g, int num_heads, float eps,
                     const float* ln_s, const float* ln_b, const bf16* qkv_w,
                     const float* qkv_b, const float* rel_bias,
-                    const float* mask, bf16* ws_tc, bf16* ws_qkv,
-                    cudaStream_t stream);
+                    const float* mask, const int* mask_labels,
+                    const float* mask_off, int groups, bf16* ws_tc,
+                    bf16* ws_qkv, cudaStream_t stream);
 
 }  // namespace lrce

@@ -16,13 +16,18 @@
 // window token (w, t) at its shifted position and the proj epilogue writes
 // it back there, so an unrolled x needs no roll passes.
 //
-// What bounds it on the H100: at stage 3 the qkv and proj GEMMs read
-// 8 MB of bf16 weights for 147 tokens per clip, so at small batch the
-// weight reads, not the operations, bound it; the attention grid has one
-// CTA per (clip, head), 32 per clip, too few to fill 132 SMs below about
-// 8 clips. At stages 0-2 (K6) the (T, 3C) qkv round trip through device
-// memory is the larger cost. This first version keeps LN, qkv, attention
-// and proj as separate launches.
+// What bounds it on the H100: four launches on one stream, LN1 + gather, the
+// qkv GEMM, the attention CTA and the proj GEMM. The CTA (attn_fwd.cu: a
+// ten-warp CTA per SM walking the windows of one head on mma.sync, S and P
+// in registers, the head's bias resident in shared memory, the mask as
+// labels) is bound by its softmax arithmetic, the two GEMMs (the shared
+// wgmma GEMM of swin_common.cu) by the bytes of their activations at stages
+// 0-1 and by the tensor cores at stages 2-3; at stage 3 (K2) the qkv and
+// proj GEMMs read 8 MB of bf16 weights for 147 tokens per clip, so at small
+// batch the weight reads bound it, and a CTA of the attention grid has one
+// or two windows, too few to spread the 86 KB read of its head's bias. The
+// (T, 3C) qkv and the (T, C) ctx still make one round trip through device
+// memory each: forming qkv inside the CTA's window loop is later work.
 #include "swin_common.cuh"
 
 using namespace lrce;
@@ -34,6 +39,7 @@ int window_attn(const WinGeom& g, const void* x, void* out, int num_heads,
                 float eps, const void* ln_s, const void* ln_b,
                 const void* qkv_w, const void* qkv_b, const void* proj_w,
                 const void* proj_b, const void* rel_bias, const void* mask,
+                const void* mask_labels, const void* mask_off, int groups,
                 void* ws_tc, void* ws_qkv, cudaStream_t stream) {
   const long long T = (long long)g.B * g.D * g.H * g.W;
   bf16* tc = static_cast<bf16*>(ws_tc);
@@ -43,7 +49,9 @@ int window_attn(const WinGeom& g, const void* x, void* out, int num_heads,
                            static_cast<const bf16*>(qkv_w),
                            static_cast<const float*>(qkv_b),
                            static_cast<const float*>(rel_bias),
-                           static_cast<const float*>(mask), tc,
+                           static_cast<const float*>(mask),
+                           static_cast<const int*>(mask_labels),
+                           static_cast<const float*>(mask_off), groups, tc,
                            static_cast<bf16*>(ws_qkv), stream);
   if (rc) return rc;
   // proj + bias -> bf16, window reverse (and the shift back)
@@ -62,19 +70,22 @@ int window_attn(const WinGeom& g, const void* x, void* out, int num_heads,
 extern "C" {
 
 // K6: an unrolled x and the block's shift (sd, sh, sw); K2 is the same
-// call on a pre-rolled x with shift (0, 0, 0).
+// call on a pre-rolled x with shift (0, 0, 0). mask (nd, nh, nw, N, N) f32
+// or null; mask_labels, mask_off: the same mask as labels, or both null;
+// groups: the attention CTA's window groups (launch_attn, swin_common.cuh).
 int lrce_window_attn_fwd(const void* x, void* out, int B, int D, int H, int W,
                          int C, int wd, int wh, int ww, int sd, int sh, int sw,
                          int num_heads, float eps, const void* ln_s,
                          const void* ln_b, const void* qkv_w,
                          const void* qkv_b, const void* proj_w,
                          const void* proj_b, const void* rel_bias,
-                         const void* mask, void* ws_tc, void* ws_qkv,
-                         void* stream_ptr) {
+                         const void* mask, const void* mask_labels,
+                         const void* mask_off, int groups, void* ws_tc,
+                         void* ws_qkv, void* stream_ptr) {
   return window_attn(make_geom(B, D, H, W, C, wd, wh, ww, sd, sh, sw), x, out,
                      num_heads, eps, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b,
-                     rel_bias, mask, ws_tc, ws_qkv,
-                     reinterpret_cast<cudaStream_t>(stream_ptr));
+                     rel_bias, mask, mask_labels, mask_off, groups, ws_tc,
+                     ws_qkv, reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // extern "C"

@@ -1,13 +1,16 @@
-"""The two GEMMs that every Swin kernel of the port shares, on their own.
+"""The two GEMMs and the LayerNorm that every Swin kernel of the port shares,
+on their own.
 
 ``gemm_bf16`` is ``launch_gemm`` of ``csrc/swin_common.cu``: a bf16 product
 with f32 accumulation and one of four epilogues applied before the single
 rounding to bf16. ``gemm_tn`` is ``launch_gemm_tn``: the weight-gradient
 product ``g^T . a`` in f32, split over the rows into partials that are
-summed in a fixed order. K1-K8 call both from C; these wrappers exist so
-that tests and ``chip_smoke.py`` can hold each against an f32 product of the
-same operands at the shapes the kernels give it. On CPU tensors they
-compute the plain versions.
+summed in a fixed order. ``ln_rows`` is ``launch_ln``: LayerNorm over C in
+f32, rounded to bf16, its rows in token order (a block's LN2) or gathered
+into window order under the block's cyclic shift (its LN1). K1-K8 call all
+three from C; these wrappers exist so that tests and ``chip_smoke.py`` can
+hold each against its plain version and time it at the shapes the kernels
+give it. On CPU tensors they compute the plain versions.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ from typing import Optional
 import torch
 
 from lrce_tpu_torch.ops import cuda_lib
-from lrce_tpu_torch.ops.nn import gelu
-from lrce_tpu_torch.ops.window_attn import sm_count, splitk_splits
+from lrce_tpu_torch.ops.nn import gelu, layer_norm
+from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Shift, Window,
+                                            check_kernel_args, check_shift,
+                                            expect_shape, roll_shift, sm_count,
+                                            splitk_splits, window_partition)
 
 # EpiMode of csrc/swin_common.cuh
 EPI_BIAS, EPI_BIAS_GELU, EPI_ATTN_OUT, EPI_MLP_OUT = 0, 1, 2, 3
@@ -153,3 +159,42 @@ def gemm_tn(g: torch.Tensor, a: torch.Tensor,
 
 
 gemm_tn.launches = 0
+
+
+def ln_rows_plain(x, gamma, beta, window: Window = (1, 1, 1),
+                  shift: Shift = NO_SHIFT, eps: float = 1e-5,
+                  gather: bool = False) -> torch.Tensor:
+    """Plain version of ``ln_rows``."""
+    y = layer_norm(x, gamma, beta, eps)
+    if gather:
+        y = window_partition(roll_shift(y, shift, -1), window)
+    return y.reshape(-1, x.shape[-1])
+
+
+def ln_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            window: Window = (1, 1, 1), shift: Shift = NO_SHIFT,
+            eps: float = 1e-5, gather: bool = False) -> torch.Tensor:
+    """(T, C) = LayerNorm over C of x (B, D, H, W, C), f32 math, rounded to
+    x's dtype. ``gather``: the rows in window order (``window_partition`` of
+    x rolled by -shift), as a block's LN1 leaves them; else token order, as
+    its LN2. On CUDA: x bf16 and contiguous, gamma and beta f32, C a
+    multiple of 32 up to 1024."""
+    if x.device.type == "cpu":
+        return ln_rows_plain(x, gamma, beta, window, shift, eps, gather)
+    name = "ln_rows"
+    check_kernel_args(name, x, window, 1, (), (gamma, beta))
+    b, d, h, w, c = x.shape
+    expect_shape(name, gamma, (c,))
+    expect_shape(name, beta, (c,))
+    check_shift(name, x, shift)
+    out = torch.empty((b * d * h * w, c), dtype=x.dtype, device=x.device)
+    rc = cuda_lib.library().lib.lrce_ln_rows(
+        x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift, eps,
+        gamma.data_ptr(), beta.data_ptr(), int(gather),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(name, rc)
+    ln_rows.launches += 1
+    return out
+
+
+ln_rows.launches = 0

@@ -46,7 +46,9 @@ from lrce_tpu_torch.ops import cuda_lib
 from lrce_tpu_torch.ops.nn import (gelu, layer_norm, layer_norm_input_bwd,
                                    matmul_f32)
 from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Window,
+                                            mask_label_args,
                                             attention_proj_f32, attention_vjp,
+                                            attn_fwd_groups,
                                             check_attention_shapes,
                                             check_kernel_args, check_shift,
                                             expect_shape,
@@ -389,11 +391,14 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
           torch.empty((t, max(3 * c, ff)), dtype=x.dtype, device=x.device),
           torch.empty((t, c), dtype=x.dtype, device=x.device))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    labels, off = mask_label_args(mask)
+    n = window[0] * window[1] * window[2]
     rc = cuda_lib.library().lib.lrce_swin_block_fwd(
         x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift,
         num_heads, ff, ln_eps, *(ptr(t) for t in (
-            ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, mask, ln2s,
-            ln2b, w1, b1, w2, b2, dp1, dp2)),
+            ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, mask, labels,
+            off, ln2s, ln2b, w1, b1, w2, b2, dp1, dp2)),
+        attn_fwd_groups(t // n, num_heads, sm_count(x)),
         *(t.data_ptr() for t in ws),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(name, rc)

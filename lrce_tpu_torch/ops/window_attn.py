@@ -17,6 +17,11 @@ window-attention pieces the Swin kernels share.
   qkv_w, qkv_b, proj_w and rel_bias (``csrc/attn_bwd.cu``). The head chunks
   exist on the TPU only to fit VMEM and do not come across.
 
+- ``window_attention_core`` is the attention CTA that K6, K2, K1 and K3
+  share (``csrc/attn_fwd.cu``), on its own: packed qkv, rel_bias and mask in,
+  ctx out. ``window_attention_core_plain`` is the statement of it, and the
+  plain versions of K6 / K2 / K1 / K3 go through that.
+
 K6 and K2 are ``torch.autograd.Function``s whose backward is K4 followed by
 the f32 LN1 input backward, as ``_bwd`` / ``_hsplit_bwd`` are.
 
@@ -27,6 +32,7 @@ or raises. Nothing falls back.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Optional, Sequence, Tuple
@@ -69,13 +75,14 @@ def roll_shift(x: torch.Tensor, shift: Shift, sign: int) -> torch.Tensor:
 
 
 def _logits_add(logits, rel_bias, mask, num_heads):
-    """logits (nb, nH, N, N) + rel_bias (nH, N, N) [+ mask (nd, nh, nw, N, N),
-    windows in partition order]."""
+    """logits (nb, nH, N, N) + rel_bias (nH, N, N) [+ mask (..., N, N), one
+    per window of a clip, windows in partition order]."""
     nb, _, n, _ = logits.shape
     if mask is None:
         return logits + rel_bias[None]
-    nw = mask.shape[0] * mask.shape[1] * mask.shape[2]
-    add = rel_bias[None, None] + mask.reshape(nw, n, n)[None, :, None]
+    mask = mask.reshape(-1, n, n)
+    nw = mask.shape[0]
+    add = rel_bias[None, None] + mask[None, :, None]
     return (logits.reshape(nb // nw, nw, num_heads, n, n)
             + add).reshape(nb, num_heads, n, n)
 
@@ -86,22 +93,46 @@ def _softmax_f32(logits):
     return e * (1.0 / e.sum(-1, keepdim=True))
 
 
+def _split_heads(qkv, num_heads):
+    """Packed (nb, N, 3C) qkv -> q, k, v (nb, nH, N, hd), q scaled on its
+    value in the activation dtype."""
+    nb, n, c3 = qkv.shape
+    hd = c3 // 3 // num_heads
+    qkv = qkv.reshape(nb, n, 3, num_heads, hd)
+    qkv = qkv.permute(2, 0, 3, 1, 4)                     # (3, nb, nH, N, hd)
+    q = (qkv[0].float() * (1.0 / math.sqrt(hd))).to(qkv.dtype)
+    return q, qkv[1], qkv[2]
+
+
 def _qkv_heads(win, qkv_w, qkv_b, num_heads):
     """qkv + bias rounded to the activation dtype, q scaled on that value:
     three (nb, nH, N, hd) tensors."""
-    nb, n, c = win.shape
-    hd = c // num_heads
-    dt = win.dtype
-    qkv = dense(win, qkv_w, qkv_b).reshape(nb, n, 3, num_heads, hd)
-    qkv = qkv.permute(2, 0, 3, 1, 4)                     # (3, nb, nH, N, hd)
-    q = (qkv[0].float() * (1.0 / math.sqrt(hd))).to(dt)
-    return q, qkv[1], qkv[2]
+    return _split_heads(dense(win, qkv_w, qkv_b), num_heads)
 
 
 def _merge_heads(t):
     """(nb, nH, N, hd) -> (nb, N, nH * hd)."""
     nb, nh, n, hd = t.shape
     return t.transpose(1, 2).reshape(nb, n, nh * hd)
+
+
+def window_attention_core_plain(qkv: torch.Tensor, rel_bias: torch.Tensor,
+                                mask: Optional[torch.Tensor],
+                                num_heads: int) -> torch.Tensor:
+    """Plain version of ``window_attention_core``, the statement of the
+    attention CTA: q scaled on its value in qkv's dtype, logits + rel_bias
+    (+ the window's mask) and an exact softmax in f32, the weights rounded
+    to qkv's dtype before P.V, ctx summed in f32 and rounded once.
+
+    qkv: (windows, N, 3C), ``[q | k | v]`` with head h at columns h * hd;
+    rel_bias: (nH, N, N) f32; mask: (..., N, N) additive, one per window of
+    a clip in partition order, or None. Returns ctx (windows, N, C)."""
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, num_heads)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    weights = _softmax_f32(_logits_add(logits, rel_bias, mask, num_heads))
+    ctx = torch.matmul(weights.to(dt).float(), v.float()).to(dt)
+    return _merge_heads(ctx)
 
 
 def attention_proj_f32(win: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
@@ -111,15 +142,12 @@ def attention_proj_f32(win: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
 
     win: (B*nW, N, C) normalized tokens; rel_bias: (nH, N, N) f32; mask:
     (nd, nh, nw, N, N) additive or None. Returns proj + bias in f32:
-    qkv + bias rounds to the activation dtype, q is scaled on that value,
-    logits and softmax are f32, the weights round before P.V, ctx rounds.
+    qkv + bias rounds to the activation dtype, the attention is
+    ``window_attention_core_plain``, ctx rounds.
     """
-    dt = win.dtype
-    q, k, v = _qkv_heads(win, qkv_w, qkv_b, num_heads)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    weights = _softmax_f32(_logits_add(logits, rel_bias, mask, num_heads))
-    ctx = torch.matmul(weights.to(dt).float(), v.float()).to(dt)
-    return matmul_f32(_merge_heads(ctx), proj_w) + proj_b.float()
+    ctx = window_attention_core_plain(dense(win, qkv_w, qkv_b), rel_bias,
+                                      mask, num_heads)
+    return matmul_f32(ctx, proj_w) + proj_b.float()
 
 
 def window_attention_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
@@ -241,6 +269,137 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def shift_mask_labels(mask: torch.Tensor):
+    """The label form of an additive window mask, for the attention CTA.
+
+    A shift mask adds 0 where two tokens of a window carry the same region
+    label and one value v (-100) where they differ. mask: (..., N, N), one
+    per window of a clip. Returns (labels, off): labels (windows, ceil16(N))
+    int32, a token's label being the first token of its row that it may
+    attend to (padding 0); off (windows,) f32, window w's v (0 for an
+    all-zero window), or NaN where the labels and one value do not
+    reproduce w's mask exactly: the kernel then reads that window's mask as
+    it lies. Runs on the mask's device and does not synchronise."""
+    n = mask.shape[-1]
+    m = mask.reshape(-1, n, n)
+    labels = (m == 0).float().argmax(-1)              # the first zero
+    lo, hi = m.amin((-2, -1)), m.amax((-2, -1))
+    v = torch.where(lo != 0, lo, hi)
+    ok = (shift_mask_from_labels(labels, v) == m).flatten(1).all(-1)
+    off = torch.where(ok, v, torch.full_like(v, float("nan")))
+    pad = -n % 16
+    labels = torch.nn.functional.pad(labels.to(torch.int32), (0, pad))
+    return labels.contiguous(), off.contiguous()
+
+
+def shift_mask_from_labels(labels: torch.Tensor,
+                           off: torch.Tensor) -> torch.Tensor:
+    """What the attention CTA adds for labels (windows, N) and off
+    (windows,): off[w] where two tokens' labels differ, else 0."""
+    same = labels[:, :, None] == labels[:, None, :]
+    return torch.where(same, torch.zeros_like(off)[:, None, None],
+                       off[:, None, None])
+
+
+_MASK_LABELS = collections.OrderedDict()   # see mask_label_args
+_MASK_LABELS_KEPT = 16
+
+
+def mask_label_args(mask: Optional[torch.Tensor]):
+    """(labels, off) of ``shift_mask_labels`` for a kernel call, made once
+    per mask: the model hands every shifted block of a stage the same mask.
+    An entry holds its mask, so the memory behind the key cannot be given to
+    another tensor while the entry lives; an in-place write changes the
+    key's version."""
+    if mask is None:
+        return None, None
+    if mask.is_inference():
+        return shift_mask_labels(mask)
+    key = (mask.data_ptr(), mask._version, tuple(mask.shape), mask.device)
+    hit = _MASK_LABELS.get(key)
+    if hit is None:
+        hit = _MASK_LABELS[key] = (mask, *shift_mask_labels(mask))
+        if len(_MASK_LABELS) > _MASK_LABELS_KEPT:
+            _MASK_LABELS.popitem(last=False)
+    return hit[1], hit[2]
+
+
+def attn_fwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
+    """Window groups of the attention-forward CTA's grid: each CTA (group,
+    head) reads its head's rel_bias once and walks its windows. The CTA
+    fills an SM (ten warps, ~165 KB of shared memory), so the grid is sized
+    as K4's: about one CTA per SM of ``sms``, never more groups than
+    windows."""
+    return attn_bwd_groups(nwin_total, num_heads, sms)
+
+
+def _check_core_shapes(name, qkv, rel_bias, mask, num_heads):
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"{name}: qkv must be (windows, N, 3C) with C a "
+                         f"multiple of {num_heads} heads, got "
+                         f"{tuple(qkv.shape)}")
+    n = qkv.shape[1]
+    expect_shape(name, rel_bias, (num_heads, n, n))
+    if mask is not None:
+        nw = mask.numel() // (n * n) if n else 0
+        if (mask.ndim < 3 or tuple(mask.shape[-2:]) != (n, n) or nw < 1
+                or qkv.shape[0] % nw):
+            raise ValueError(f"{name}: mask {tuple(mask.shape)} is not (..., "
+                             f"{n}, {n}) with a window count that divides "
+                             f"{qkv.shape[0]}")
+
+
+def window_attention_core(qkv: torch.Tensor, rel_bias: torch.Tensor,
+                          mask: Optional[torch.Tensor],
+                          num_heads: int) -> torch.Tensor:
+    """The attention CTA of K6 / K2 / K1 / K3 alone: ctx = softmax(q k^T +
+    rel_bias [+ mask]) v per (window, head); see
+    ``window_attention_core_plain`` for the contract.
+
+    qkv: (windows, N, 3C); rel_bias: (nH, N, N) f32; mask: (..., N, N) f32,
+    one per window of a clip (windows a multiple of their count), or None.
+    Returns ctx (windows, N, C). On CUDA: qkv bf16, everything contiguous,
+    head_dim a multiple of 16; head_dim 16 or 32 with N <= 160 runs the
+    ``mma.sync`` CTA of ``csrc/attn_fwd.cu``, other shapes the WMMA CTA of
+    ``csrc/swin_common.cu``."""
+    name = "window_attention_core"
+    _check_core_shapes(name, qkv, rel_bias, mask, num_heads)
+    if qkv.device.type == "cpu":
+        return window_attention_core_plain(qkv, rel_bias, mask, num_heads)
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: qkv must be bfloat16, got {qkv.dtype}")
+    for t in (rel_bias, mask):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name}: rel_bias and mask must be float32, got "
+                            f"{t.dtype}")
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: takes CPU or CUDA tensors, got "
+                         f"{qkv.device}")
+    for t in (qkv, rel_bias, mask):
+        if t is not None and (t.device != qkv.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: every tensor must be contiguous and on "
+                             f"{qkv.device}")
+    nwin, n, c3 = qkv.shape
+    c = c3 // 3
+    if (c // num_heads) % 16:
+        raise ValueError(f"{name}: head_dim {c // num_heads} is not a "
+                         "multiple of 16")
+    nwin_clip = nwin if mask is None else mask.numel() // (n * n)
+    labels, off = mask_label_args(mask)
+    ctx = torch.empty((nwin, n, c), dtype=qkv.dtype, device=qkv.device)
+    rc = cuda_lib.library().lib.lrce_window_attn_core(
+        qkv.data_ptr(), ctx.data_ptr(), rel_bias.data_ptr(), _ptr(mask),
+        _ptr(labels), _ptr(off), nwin, nwin_clip, n, c, num_heads,
+        attn_fwd_groups(nwin, num_heads, sm_count(qkv)), _stream(qkv))
+    cuda_lib.check(name, rc)
+    window_attention_core.launches += 1
+    return ctx
+
+
+window_attention_core.launches = 0
+
+
 def _attention_fwd_kernel(name, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
                           proj_b, rel_bias, mask, window, num_heads, ln_eps,
                           shift) -> torch.Tensor:
@@ -258,12 +417,15 @@ def _attention_fwd_kernel(name, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
     out = torch.empty_like(x)
     ws_tc = torch.empty((t, c), dtype=x.dtype, device=x.device)
     ws_qkv = torch.empty((t, 3 * c), dtype=x.dtype, device=x.device)
+    labels, off = mask_label_args(mask)
+    n = window[0] * window[1] * window[2]
     rc = cuda_lib.library().lib.lrce_window_attn_fwd(
         x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift,
         num_heads, ln_eps, ln_scale.data_ptr(), ln_bias.data_ptr(),
         qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(),
-        proj_b.data_ptr(), rel_bias.data_ptr(), _ptr(mask), ws_tc.data_ptr(),
-        ws_qkv.data_ptr(), _stream(x))
+        proj_b.data_ptr(), rel_bias.data_ptr(), _ptr(mask), _ptr(labels),
+        _ptr(off), attn_fwd_groups(t // n, num_heads, sm_count(x)),
+        ws_tc.data_ptr(), ws_qkv.data_ptr(), _stream(x))
     cuda_lib.check(name, rc)
     return out
 

@@ -44,7 +44,8 @@ KINDS = (   # first match wins, on the kernel's name; the names of earlier
     ("K5 hidden kernel (fc1 + dhid + GELU backward)", ("mlp_bwd_hidden",)),
     ("split-K weight-gradient GEMM", ("gemm_tn",)),
     ("hand-written GEMM", ("gemm_wgmma", "gemm_bf16_kernel")),
-    ("window attention forward CTA", ("window_attn_kernel",)),
+    ("window attention forward CTA",
+     ("attn_fwd_kernel", "window_attn_kernel")),
     ("LN / gather / row-scale / partial sums (kernels)",
      ("ln_rows", "gather_rows", "scale_rows", "sum_parts")),
     ("AdamW (multi-tensor)", ("multi_tensor", "adam")),

@@ -1,7 +1,9 @@
 """The CUDA kernels K1-K8 against their plain PyTorch versions on the card,
 bf16, at a small geometry (K7 and K5 also at C = 1024, K8 at C = 128; the
 shared wgmma GEMMs on their own at ragged shapes; K4 and K5 at the
-flagship's stage 0 and stage 3 widths and twice over for bit-identity), the
+flagship's stage 0 and stage 3 widths and twice over for bit-identity; the
+attention-forward CTA on its own at the flagship's window and at the edges
+of its range, and the WMMA CTA that takes the shapes beyond it), the
 K1 / K3 / K2 / K7 autograd.Functions' gradients against torch autograd
 through the plain versions, and the prefetcher's side-stream copies against
 blocking ones. Every test needs a GPU and skips without one. The file
@@ -481,3 +483,108 @@ def test_k4_at_flagship_widths_twice(dev, dims, heads, shift):
         _close(a, b)
     for a, b in zip(got, WA.window_attention_bwd(*case)):
         assert torch.equal(a, b)    # fixed-order sums: bit-identical
+
+
+# ---------------------------------------------------------------------------
+# the attention-forward CTA on its own
+# ---------------------------------------------------------------------------
+
+def _core_case(rng, dev, clips, nwin_clip, n, hd, heads, mask_kind):
+    """qkv (clips * nwin_clip, n, 3C) bf16, rel_bias, mask on the card. The
+    mask: None, "labels" (0 / -100 by random region labels, as a shift mask),
+    "dense" (arbitrary values), or "mixed" (one window of a label mask made
+    three-valued, so only that window reads the dense mask)."""
+    c = heads * hd
+    qkv = _bf(rng, dev, (clips * nwin_clip, n, 3 * c))
+    rel = torch.tensor(rng.normal(size=(heads, n, n)), dtype=torch.float32,
+                       device=dev)
+    mask = None
+    if mask_kind == "dense":
+        mask = rng.normal(size=(nwin_clip, n, n)) * 3.0
+    elif mask_kind in ("labels", "mixed"):
+        lab = rng.integers(0, 3, size=(nwin_clip, n))
+        mask = np.where(lab[:, :, None] != lab[:, None, :], -100.0, 0.0)
+        if mask_kind == "mixed":
+            i, j = np.argwhere(mask[0] != 0)[0]
+            mask[0, i, j] = -50.0
+    if mask is not None:
+        mask = torch.tensor(mask, dtype=torch.float32, device=dev)
+    return qkv, rel, mask, heads
+
+
+# (clips, windows per clip, N, head_dim, heads): the flagship's window at
+# stage 0 width with more windows than the 33 groups of a 132-SM card and a
+# count that is no multiple of them; stage 3 (32 heads, fewer windows than
+# groups); N = 98 (window (2, 7, 7)); a full 160-token window; N = 8 with
+# head_dim 16; one window
+CORE_SHAPES = {"n147-hd32": (5, 8, 147, 32, 4), "stage3": (3, 1, 147, 32, 32),
+               "n98-hd32": (2, 4, 98, 32, 8), "n160": (2, 2, 160, 32, 4),
+               "n8-hd16": (3, 4, 8, 16, 2), "one-window": (1, 1, 147, 32, 4),
+               "n147-hd16": (2, 2, 147, 16, 4)}
+
+
+@pytest.mark.parametrize("mask_kind", [None, "labels", "dense", "mixed"],
+                         ids=["unmasked", "labels", "dense", "mixed"])
+@pytest.mark.parametrize("shape", list(CORE_SHAPES))
+def test_attn_core(dev, shape, mask_kind):
+    case = _core_case(np.random.default_rng(30), dev, *CORE_SHAPES[shape],
+                      mask_kind)
+    before = WA.window_attention_core.launches
+    got = WA.window_attention_core(*case)
+    assert WA.window_attention_core.launches == before + 1
+    _close(got, WA.window_attention_core_plain(*case))
+    assert torch.equal(got, WA.window_attention_core(*case))    # no atomics
+    if mask_kind in ("labels", "mixed"):
+        off = WA.mask_label_args(case[2])[1]
+        assert int(torch.isnan(off).sum()) == (mask_kind == "mixed")
+    if mask_kind == "dense":
+        assert bool(torch.isnan(WA.mask_label_args(case[2])[1]).all())
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("n,hd,heads", [(392, 32, 2), (147, 64, 2),
+                                        (98, 48, 2)],
+                         ids=["n392", "hd64", "hd48"])
+def test_attn_core_beyond_the_new_kernels_range(dev, n, hd, heads, masked):
+    """N > 160 or a head_dim other than 16 or 32 runs the WMMA CTA."""
+    case = _core_case(np.random.default_rng(31), dev, 2, 2, n, hd, heads,
+                      "labels" if masked else None)
+    _close(WA.window_attention_core(*case),
+           WA.window_attention_core_plain(*case))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_k6_with_the_constructor_window(dev, masked):
+    """K6 on a 16-frame clip's window (8, 7, 7), N = 392: the shape rule of
+    the attention launcher takes the WMMA CTA, and nothing raises."""
+    rng = np.random.default_rng(32)
+    window, shift = (8, 7, 7), ((4, 3, 3) if masked else SHIFT0)
+    case = _k4_case(rng, dev, (1, 8, 14, 14, 64), 2, window, shift)
+    x, _, ln_s, ln_b, qkv_w, qkv_b, proj_w, rel, mask = case[:9]
+    proj_b = torch.tensor(0.02 * rng.normal(size=64), dtype=torch.float32,
+                          device=dev)
+    args = (x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, rel, mask, window, 2,
+            1e-5, shift)
+    _close(WA.fused_window_attention(*args), WA.window_attention_plain(*args))
+
+
+@pytest.mark.parametrize("gather,shift", [(False, SHIFT0), (True, SHIFT0),
+                                          (True, SHIFT)],
+                         ids=["token-order", "window-order", "shifted"])
+def test_ln_rows(dev, gather, shift):
+    x, args = _args(np.random.default_rng(34), dev)
+    before = G.ln_rows.launches
+    got = G.ln_rows(x, args[0], args[1], WINDOW, shift, 1e-5, gather)
+    assert G.ln_rows.launches == before + 1
+    _close(got, G.ln_rows_plain(x, args[0], args[1], WINDOW, shift, 1e-5,
+                                gather))
+
+
+def test_attn_core_refuses_f32(dev):
+    qkv, rel, _, heads = _core_case(np.random.default_rng(33), dev, 1, 1, 147,
+                                    32, 4, None)
+    with pytest.raises(TypeError, match="bfloat16"):
+        WA.window_attention_core(qkv.float(), rel, None, heads)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        WA.window_attention_core(qkv[..., :3 * 4 * 24].contiguous(), rel, None,
+                                 heads)

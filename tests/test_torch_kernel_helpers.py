@@ -172,6 +172,34 @@ def test_gemm_tn_on_the_cpu_is_its_plain_version():
     np.testing.assert_allclose(got.numpy(), g64.T @ a64, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("gather,shift", [(False, (0, 0, 0)),
+                                          (True, (0, 0, 0)),
+                                          (True, (1, 1, 2))],
+                         ids=["token-order", "window-order", "shifted"])
+def test_ln_rows_on_the_cpu_is_its_plain_version(gather, shift):
+    rng = np.random.default_rng(5)
+    window = (2, 3, 3)
+    x, x64 = _np_bf16(rng, (2, 2, 6, 9, 32))
+    gamma = torch.tensor(1 + 0.2 * rng.normal(size=32), dtype=torch.float32)
+    beta = torch.tensor(0.1 * rng.normal(size=32), dtype=torch.float32)
+    before = G.ln_rows.launches
+    got = G.ln_rows(x, gamma, beta, window, shift, 1e-5, gather)
+    assert G.ln_rows.launches == before        # no kernel on the CPU
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (216, 32)
+    assert torch.equal(got, G.ln_rows_plain(x, gamma, beta, window, shift,
+                                            1e-5, gather))
+    d = x64 - x64.mean(-1, keepdims=True)
+    want = (d / np.sqrt((d * d).mean(-1, keepdims=True) + 1e-5)
+            * gamma.numpy().astype(np.float64) + beta.numpy())
+    if gather:
+        want = np.roll(want, tuple(-v for v in shift), axis=(1, 2, 3))
+        want = want.reshape(2, 1, 2, 2, 3, 3, 3, 32).transpose(
+            0, 1, 3, 5, 2, 4, 6, 7)
+    err = np.abs(got.float().numpy() - want.reshape(-1, 32))
+    assert (err <= 2.0 ** -8 * np.maximum(np.abs(want.reshape(-1, 32)),
+                                          1.0)).all()
+
+
 def test_mlp_bwd_and_attn_bwd_refuse_what_their_kernels_do_not_take():
     """The checks that run before any launch: a non-CPU, non-CUDA device and
     a wrong dtype raise (a CUDA tensor never falls back to the plain
@@ -185,3 +213,6 @@ def test_mlp_bwd_and_attn_bwd_refuse_what_their_kernels_do_not_take():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         G.gemm_tn(torch.zeros((8, 8), device="meta", dtype=torch.bfloat16),
                   torch.zeros((8, 8), device="meta", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        G.ln_rows(x, torch.zeros(32, device="meta"),
+                  torch.zeros(32, device="meta"))
