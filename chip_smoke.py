@@ -26,8 +26,10 @@ Phases, each raising on failure (the script then exits non-zero):
      the bias (+ mask) as an additive f32 mask (a yardstick: the port never
      calls it), per call and summed over the 46 calls of a train step, as
      one JSON line; one shape outside the CTA's range (N = 392) through K6
-     against plain; and the LayerNorm (+ window gather) alone at every
-     stage (``ops/gemm.ln_rows``);
+     against plain, and a Swin stage at that window with grad mode on (the
+     plain block: K4 refuses N = 392) and off (K1 / K3), its launch counts
+     printed as one ``[route]`` line; and the LayerNorm (+ window gather)
+     alone at every stage (``ops/gemm.ln_rows``);
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      flagship shapes (bf16), at 6 clips (one request) and at the train
      step's 48: K1, K3, K2 (forward); K6 with and without the mask at
@@ -40,16 +42,19 @@ Phases, each raising on failure (the script then exits non-zero):
      each kernel's sums over the calls of one step at 6 and at 48 clips. Then
      the K1, K3, K2 and K7 autograd.Functions' gradients against torch
      autograd through their plain versions, one block per stage, at 6 and
-     at 48 clips. Then K1, K3, K6 and K2 by piece: each per-call time beside
-     the times of its pieces taken alone above (LN1 + gather, qkv, the CTA,
-     proj, LN2, fc1, fc2), the library's product for each GEMM, and the
-     remainder, as one JSON line;
+     at 48 clips. K1 / K3's one-launch back half (``swin_back_half``) alone
+     at stages 0-1, unshifted and shifted, against its plain version. Then
+     K1, K3, K6 and K2 by piece: each per-call time beside the times of its
+     pieces taken alone above (LN1 + gather, qkv, the CTA, and the back half
+     at stages 0-1 or proj, LN2, fc1, fc2 at stage 2), the library's product
+     for each GEMM, and the remainder, as one JSON line;
   4. forward: the flagship LRCEModel (Video Swin-B, BERT-base, 12-layer
      fusion, open-ended head, random weights from a seed) on the card in
      bf16 answers 3 requests of 2 questions x 3 clips x 5 x 224 x 224 uint8
      frames with 32 tokens. Logits must be finite, (2, 1000), agree with
      the same model run on the plain route, and each request must launch
-     K1 11 times, K3 11 times and K2 twice. Then the same requests with the
+     K1 11 times, K3 11 times, K2 twice and the back half 4 times (K1 and
+     K3 at stages 0-1). Then the same requests with the
      stage-3 MLP routed through K7 (``ln_mlp=True``): K7 twice per request,
      logits within the same limit of the plain route, the request time with
      the route on and off taken in turns. Then K8 through its own entry
@@ -140,7 +145,9 @@ WINDOW = (3, 7, 7)
 SHIFT = (0, 3, 3)
 NO_SHIFT = (0, 0, 0)
 CALLS_PER_FORWARD = {"K1": (1, 1, 9, 0), "K3": (1, 1, 9, 0),
-                     "K2": (0, 0, 0, 2)}
+                     "K2": (0, 0, 0, 2),
+                     # K1 / K3's one-launch back half, at stages 0-1
+                     "back_half": (2, 2, 0, 0)}
 # backward of one train step: K6 and K5 once per K1/K3 block, K4 once per
 # block of every stage (K2's backward included); K6 and K4 run half their
 # calls with the mask (the shifted blocks)
@@ -191,6 +198,15 @@ def phase_build():
 
     lib = cuda_lib.library()
     print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s", flush=True)
+    # the host cost of a TMA tensor map (a GEMM call encodes two, K1 / K3's
+    # back half four, each cached by pointer and shape)
+    import ctypes
+    from lrce_tpu_torch.ops.cuda_lib import check
+    ns = ctypes.c_double()
+    check("lrce_tmap_encode_ns",
+          lib.lib.lrce_tmap_encode_ns(2000, ctypes.addressof(ns)))
+    print(f"[build] TMA tensor-map encode: {ns.value:.1f} ns on the host "
+          "each (2000 encodes)", flush=True)
     # ptxas -v: "Compiling entry function '<mangled>'", then its spill
     # bytes, then its registers; a spilled wgmma accumulator shows here
     name = None
@@ -336,7 +352,7 @@ def phase_gemms():
     n_win = WINDOW[0] * WINDOW[1] * WINDOW[2]
     rows = []
     for clips in (N_CLIPS, TRAIN_CLIPS):
-        iters = 3 if clips == N_CLIPS else 5
+        iters = 2 if clips == N_CLIPS else 4
         for stage, (d, h, w, c, _) in enumerate(STAGES):
             t = clips * d * h * w
             ff = 4 * c
@@ -533,26 +549,55 @@ def phase_attn_core():
           window, heads, 1e-5, shift)
     _compare(f"K6 beyond the CTA's range, window {window} (N {n_big})",
              WA.fused_window_attention(*k6), WA.window_attention_plain(*k6))
+    # the same geometry through a Swin stage: with grad mode on it trains on
+    # the plain block (K4 refuses N = 392), with it off it runs the kernels
+    from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
+                                              SwinConfig)
+
+    layer = BasicLayer(c, 2, heads, SwinConfig(window_size=window), False,
+                       torch.bfloat16, torch.Generator().manual_seed(3)).cuda()
+    xs = x.detach().requires_grad_()
+    _reset_counts()
+    layer(xs, True, DeviceConstants()).float().sum().backward()
+    with_grad = _counts()
+    _reset_counts()
+    with torch.no_grad():
+        layer(x, True, DeviceConstants())
+    without = _counts()
+    print(f"[route] window {window} (N {n_big}), head_dim {c // heads}: K4 "
+          f"takes it {WA.attn_bwd_supported(n_big, c // heads)}; launches, "
+          f"forward + backward with grad {with_grad}, forward without grad "
+          f"{without}", flush=True)
+    require(all(v == 0 for v in with_grad.values()) and xs.grad is not None,
+            "a stage at N = 392 launched a kernel with grad mode on")
+    require(without["K1"] == 1 and without["K3"] == 1,
+            "a stage at N = 392 did not run K1 / K3 without grad")
+    del layer, xs
     print(json.dumps({"attn_core": out}), flush=True)
     return out, ln_ms
 
 
-def phase_by_piece(gemms, attn_rows, ln_ms, call_ms):
+def phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms):
     """K1, K3, K6 and K2 per call beside the times of their pieces taken
     alone (the GEMMs by phase_gemms, the CTA and the LayerNorms by
-    phase_attn_core): what is left over is launch gaps, the wrapper's
+    phase_attn_core, K1 / K3's one-launch back half at stages 0-1 by
+    phase_kernels): what is left over is launch gaps, the wrapper's
     allocations and, for K6 and K2, the cheaper proj epilogue (the proj timed
     alone is K1's, with dp1 and the residual)."""
     gemm = {(g["name"], g["clips"], g["stage"]): g for g in gemms}
     cta = {(a["clips"], a["stage"], a["masked"]): a["ms"] for a in attn_rows}
     out = []
     for (kernel, clips, stage, masked), total in sorted(call_ms.items()):
-        names = ["qkv", "proj"] + (["fc1", "fc2"] if kernel in ("K1", "K3")
-                                   else [])
+        fused = (kernel in ("K1", "K3")
+                 and (clips, stage, masked) in back_half_ms)
+        names = ["qkv"] + ([] if fused else ["proj"]) + (
+            ["fc1", "fc2"] if kernel in ("K1", "K3") and not fused else [])
         pieces = {"ln1_gather": ln_ms[(clips, stage,
                                        "ln1_shift" if masked else "ln1")],
                   "cta": cta[(clips, stage, masked)]}
-        if kernel in ("K1", "K3"):
+        if fused:
+            pieces["back_half"] = back_half_ms[(clips, stage, masked)]
+        elif kernel in ("K1", "K3"):
             pieces["ln2"] = ln_ms[(clips, stage, "ln2")]
         for name in names:
             pieces[name] = gemm[(name, clips, stage)]["ms"]
@@ -592,6 +637,7 @@ def phase_kernels():
     per_call = []
 
     call_ms = {}    # (kernel, clips, stage, masked) -> per-call kernel ms
+    back_half_ms = {}   # (clips, stage, shifted) -> the back half alone
 
     def record(kernel, calls, label, run_k, run_p, work, timed=None,
                piece_key=None):
@@ -697,6 +743,24 @@ def phase_kernels():
                    lambda: SB.swin_block_plain(*k1),
                    _work("K1", clips, stage), timed=True,
                    piece_key=(stage, False))
+            if SB.back_half_supported(c, 4 * c):
+                # K1 / K3's one-launch back half alone, unshifted (K1) and
+                # shifted (K3), for the by-piece split
+                ctx = _seeded((x.numel() // c, c), gen)
+                for masked in (False, True):
+                    bh = (ctx, x, p["proj_w"], p["proj_b"], *mlp, None, None,
+                          WINDOW, SHIFT if masked else NO_SHIFT)
+                    tag = (f"swin_back_half {label}"
+                           + (" shifted" if masked else " unshifted"))
+                    _compare(tag, SB.swin_back_half(*bh),
+                             SB.back_half_plain(*bh))
+                    it = 10 if train_shape else 4
+                    back_half_ms[(clips, stage, masked)] = _cuda_time_ms(
+                        lambda: SB.swin_back_half(*bh), it)
+                    print(f"[kernels] {tag}: kernel "
+                          f"{back_half_ms[(clips, stage, masked)]:.4f} ms",
+                          flush=True)
+                del ctx
             q = _block_weights(c, heads, n, gen, 1)
             k3 = (x, *(q[k] for k in ATTN_KEYS), mask,
                   *(q[k] for k in MLP_KEYS), None, None, WINDOW, heads,
@@ -773,7 +837,9 @@ def phase_kernels():
     for k, r in by_clips[N_CLIPS].items():
         r["max_abs_err"] = max(r["max_abs_err"],
                                by_clips[TRAIN_CLIPS][k]["max_abs_err"])
-    return by_clips[N_CLIPS], by_clips[TRAIN_CLIPS], per_call, call_ms
+    require(SB.swin_back_half.launches > 0, "the back half never launched")
+    return (by_clips[N_CLIPS], by_clips[TRAIN_CLIPS], per_call, call_ms,
+            back_half_ms)
 
 
 def _grads(fn, x, leaves, g):
@@ -846,7 +912,8 @@ def _wrappers():
     return {"K1": SB.fused_swin_block, "K3": SB.fused_swin_pair,
             "K2": WA.fused_window_attention_hsplit, "K7": SB.fused_ln_mlp,
             "K8": M.fused_mlp, "K6": WA.fused_window_attention,
-            "K5": SB.mlp_bwd, "K4": WA.window_attention_bwd}
+            "K5": SB.mlp_bwd, "K4": WA.window_attention_bwd,
+            "back_half": SB.swin_back_half}
 
 
 def _reset_counts():
@@ -1309,8 +1376,8 @@ def main() -> int:
     lib = phase_build()
     gemms = phase_gemms()
     attn_rows, ln_ms = phase_attn_core()
-    results, results48, per_call, call_ms = phase_kernels()
-    phase_by_piece(gemms, attn_rows, ln_ms, call_ms)
+    results, results48, per_call, call_ms, back_half_ms = phase_kernels()
+    phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms)
     phase_function_grads()
     fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
     train_launches, step_ms, peak = phase_train()

@@ -26,9 +26,12 @@ int lrce_gemm(const void* a, const void* b, void* out, int M, int N, int K,
                      reinterpret_cast<cudaStream_t>(stream_ptr), b_kn != 0);
 }
 
-// 1 where lrce_gemm takes its 128 x 256 tile on a card of `sms` SMs, else 0.
-int lrce_gemm_wide_tile(int M, int N, int K, int sms) {
-  return gemm_wide_tile(M, N, K, sms) ? 1 : 0;
+// *out (a double) = host nanoseconds of one TMA tensor-map encode, over n
+// encodes that miss the cache (the host cost of a GEMM call's two maps).
+int lrce_tmap_encode_ns(int n, void* out) {
+  const double ns = tmap_encode_ns(n > 0 ? n : 1);
+  *static_cast<double*>(out) = ns;
+  return ns < 0 ? (int)cudaErrorNotSupported : 0;
 }
 
 // out (N x K, f32) = g^T . a with g (M x N), a (M x K) bf16; ws (splits,

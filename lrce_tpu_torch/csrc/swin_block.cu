@@ -13,25 +13,31 @@
 //
 // What bounds it on the H100: the four GEMMs (qkv, proj, fc1, fc2) are
 // 72% (stage 0) to 91% (stage 2) of the block's operations and run on the
-// tensor cores through the shared wgmma GEMM (swin_common.cu); the
-// attention between qkv and proj is the CTA of attn_fwd.cu (mma.sync, S and
-// P in registers, several windows per CTA, the head's bias resident in
-// shared memory, the mask as labels), bound by its softmax arithmetic. The
-// (T, 4C) GELU hidden and the (T, 3C) qkv make one round trip through
-// device memory each, which at C = 128 (stage 0) is the larger cost. The
-// pieces are separate launches on one stream and keep nothing on chip
-// across them; fusing LN into the GEMM's A-load and fc1 into fc2 are the
-// next steps.
+// tensor cores; the attention between qkv and proj is the CTA of
+// attn_fwd.cu (mma.sync, S and P in registers, several windows per CTA,
+// the head's bias resident in shared memory, the mask as labels), bound by
+// its softmax arithmetic. The front half is three launches: LN1 + window
+// gather, the qkv GEMM (the shared warp-specialised wgmma GEMM of
+// swin_common.cu) and the attention CTA; ctx leaves it in window order.
+// The back half at C <= 256 (stages 0 and 1) is one launch, back_half.cu:
+// proj, the residual, LN2, fc1, GELU and fc2 with h1 and the (T, 4C) hidden
+// kept on chip. At C = 512 (stage 2) the fc2 accumulator of a 64-row tile
+// does not fit a thread's registers, and the back half is four launches on
+// the shared GEMM (proj with the scatter, LN2, fc1 + GELU, fc2), with h1
+// and the hidden through device memory.
 #include "swin_common.cuh"
 
 using namespace lrce;
 
 extern "C" {
 
-// One block. ws_tc: (T, C) bf16 scratch; ws_big: (T, max(3C, ff)) bf16
-// scratch; ws_h1: (T, C) bf16 scratch. out must not alias x. mask_labels,
+// One block. ws_tc: (T, C) bf16 scratch; ws_big: (T, 3C) bf16 scratch, or
+// (T, max(3C, ff)) without back_half; ws_h1: (T, C) bf16 scratch, unused
+// (may be null) with back_half. out must not alias x. mask_labels,
 // mask_off: the mask as labels, or both null; groups: the attention CTA's
-// window groups (launch_attn, swin_common.cuh).
+// window groups (launch_attn, swin_common.cuh). back_half != 0: the back
+// half as one launch (back_half.cu; C = 128 or 256 and ff = 4 C only), else
+// as four.
 int lrce_swin_block_fwd(const void* x, void* out, int B, int D, int H, int W,
                         int C, int wd, int wh, int ww, int sd, int sh, int sw,
                         int num_heads, int ff, float eps, const void* ln1s,
@@ -43,8 +49,8 @@ int lrce_swin_block_fwd(const void* x, void* out, int B, int D, int H, int W,
                         const void* ln2b,
                         const void* w1, const void* b1, const void* w2,
                         const void* b2, const void* dp1, const void* dp2,
-                        int groups, void* ws_tc, void* ws_big, void* ws_h1,
-                        void* stream_ptr) {
+                        int groups, int back_half, void* ws_tc,
+                        void* ws_big, void* ws_h1, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const WinGeom g = make_geom(B, D, H, W, C, wd, wh, ww, sd, sh, sw);
   const long long T = (long long)B * D * H * W;
@@ -64,6 +70,18 @@ int lrce_swin_block_fwd(const void* x, void* out, int B, int D, int H, int W,
                            static_cast<const float*>(mask_off), groups, tc,
                            big, stream);
   if (rc) return rc;
+  if (back_half) {
+    if (!back_half_supported(C) || ff != 4 * C)
+      return (int)cudaErrorInvalidValue;
+    return launch_back_half(
+        tc, xb, static_cast<bf16*>(out), g, eps,
+        static_cast<const bf16*>(proj_w), static_cast<const float*>(proj_b),
+        static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
+        static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+        static_cast<const float*>(dp1), static_cast<const float*>(dp2),
+        stream);
+  }
 
   // proj + bias, x dp1, bf16, + x (bf16), back to spatial order -> h1
   Epilogue ep = {};

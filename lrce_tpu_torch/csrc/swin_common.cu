@@ -6,9 +6,13 @@
 
 #include "hopper.cuh"
 
+#include <cudaTypedefs.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <chrono>
+#include <mutex>
 
 namespace lrce {
 namespace {
@@ -20,28 +24,6 @@ namespace wmma = nvcuda::wmma;
     cudaError_t e_ = cudaGetLastError();        \
     if (e_ != cudaSuccess) return (int)e_;      \
   } while (0)
-
-// Window-order row -> spatial token index. Rows follow window_partition:
-// ((((b*nd + id)*nh + ih)*nw + iw)*N + (td*wh + th)*ww + tw). The token of a
-// shifted block is read where jnp.roll(x, -shift) would have put it, and
-// the block's output goes back to the same place, which is the roll by
-// +shift after the block.
-__device__ __forceinline__ long long win_row_to_token(const WinGeom& g,
-                                                      long long r) {
-  int t = (int)(r % g.N);
-  long long wi = r / g.N;
-  int iw = (int)(wi % g.nw); wi /= g.nw;
-  int ih = (int)(wi % g.nh); wi /= g.nh;
-  int id = (int)(wi % g.nd);
-  long long b = wi / g.nd;
-  int tw = t % g.ww;
-  int th = (t / g.ww) % g.wh;
-  int td = t / (g.ww * g.wh);
-  int d = (id * g.wd + td + g.sd) % g.D;
-  int h = (ih * g.wh + th + g.sh) % g.H;
-  int w = (iw * g.ww + tw + g.sw) % g.W;
-  return ((b * g.D + d) * g.H + h) * (long long)g.W + w;
-}
 
 // ---------------------------------------------------------------------------
 // (a) LayerNorm over C (C % 8 == 0, C <= 1024), f32 math, bf16 out. kLanes
@@ -121,10 +103,93 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
 
 }  // namespace
 
+namespace {
+
+PFN_cuTensorMapEncodeTiled_v12000 tmap_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  });
+  return fn;
+}
+
+int encode_tmap(CUtensorMap* map, const bf16* ptr, long long rows,
+                long long cols, long long ld, int box_rows) {
+  auto fn = tmap_encoder();
+  if (!fn) return (int)cudaErrorNotSupported;
+  if (((uintptr_t)ptr & 15) || (ld * 2) % 16 || box_rows < 1 ||
+      box_rows > 256)
+    return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<bf16*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+struct TmapEntry {
+  const bf16* ptr;
+  long long rows, cols, ld;
+  int box_rows;
+  CUtensorMap map;
+};
+
+}  // namespace
+
+int make_tmap(CUtensorMap* map, const bf16* ptr, long long rows,
+              long long cols, long long ld, int box_rows) {
+  constexpr int kEntries = 32;
+  static TmapEntry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const TmapEntry& e = cache[i];
+    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.ld == ld &&
+        e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  const int rc = encode_tmap(map, ptr, rows, cols, ld, box_rows);
+  if (rc) return rc;
+  cache[next] = TmapEntry{ptr, rows, cols, ld, box_rows, *map};
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return 0;
+}
+
+double tmap_encode_ns(int n) {
+  bf16* probe = nullptr;  // the encoder takes device addresses only
+  if (cudaMalloc(&probe, (size_t)(64 + n) * 64 * sizeof(bf16)) != cudaSuccess)
+    return -1.0;
+  CUtensorMap m;
+  int rc = 0;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < n && !rc; ++i)
+    rc = encode_tmap(&m, probe, 64 + i, 64, 64, 64);
+  const auto t1 = std::chrono::steady_clock::now();
+  cudaFree(probe);
+  if (rc) return -1.0;
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / n;
+}
+
 int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
               long long rows, float eps, const WinGeom& g, int gather,
               cudaStream_t stream) {
-  if (g.C % 8 != 0 || g.C > 8 * 32 * LN_MAX_VECS)
+  if (g.C % 8 != 0 || g.C > 8 * 32 * LN_MAX_VECS || rows >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (g.C <= 128) {
     const long long per = LN_WARPS * 2;
@@ -319,220 +384,280 @@ namespace {
 // row-major, the nn.Linear layout: out = A . W^T) or, with kBkn, a (K x N)
 // row-major matrix read in place (out = A . B: the products of the backward
 // passes that used to need a transposed copy of the weight).
-// Two warpgroups of 64 rows each, k-tile 64, a ring of shared-memory stages
-// filled by cp.async ahead of the tensor cores, tiles stored with the
-// 128-byte swizzle (hopper.cuh), rows or columns beyond M, N, K zero-filled.
-// Two tile shapes:
-//   128 x 128, three stages (32 KB each), two CTAs per SM, so one CTA's
-//     epilogue runs under the other's main loop: for the shapes that the
-//     output's bytes bound (K = 128 or 256 at stages 0 and 1);
-//   128 x 256, four stages (48 KB each), one CTA per SM, two accumulators a
-//     warpgroup: a 128 x 128 tile needs 32 KB from L2 for every 2.1 MFLOP,
-//     more than L2 delivers at the tensor cores' rate (measured: 29% of the
-//     bf16 peak at stage 2 on an NVIDIA H100 80GB HBM3, 700.00 W); the wide
-//     tile needs 48 KB for twice the work.
-// The epilogue leaves the registers through a per-warp f32 staging tile in
-// the (by then idle) ring, so that every lane then owns 8 neighbouring
-// columns of a row: bias, dp, residual and output move as 16-byte accesses
-// and a warp instruction covers whole 256-byte row segments.
-// cp.async and not TMA: a tensor map has to be encoded on the host for
-// every operand of every call (the workspaces are new allocations each
-// time), about 25 encodes per K4 + K5 pair on a train step that is already
-// bound by the host, and the split-K kernel's chunks end inside the tensor,
-// where TMA's out-of-bounds fill does not apply; 16-byte cp.async with
-// zero-fill does both on the device.
+// A persistent, warp-specialised CTA (one per SM): one producer thread
+// fills a ring of six 32 KB shared-memory stages with TMA copies (64-deep
+// boxes of A's and of B's rows, stored with the 128-byte swizzle that
+// wgmma reads, zeros past M, N, K) and two consumer warpgroups take whole
+// 128 x 128 output tiles in turns (ping-pong). The epilogue leaves the
+// registers through a per-warp f32 staging tile of its own (the ring is
+// busy with the next tiles' loads by then), 32 columns at a time, so that
+// every lane then owns 8 neighbouring columns of a row: bias, dp, residual
+// and output move as 16-byte accesses and a warp instruction covers
+// 64-byte row segments. Its global loads are latency-bound; ping-pong hides
+// them under the other consumer's products. What was measured on the way
+// (tools/piece_bench.py, an NVIDIA H100 80GB HBM3, 700.00 W): both on
+// one 128-row tile ran 10-45% slower than the PR-4 kernel (cp.async by all
+// 256 threads of two CTAs per SM, a CTA-wide barrier on every k-tile);
+// 16-byte cp.async issued by a producer warpgroup of 128 threads instead
+// of TMA took issue slots and L1 bandwidth from the consumers and was
+// slower than the PR-4 kernel in every variant; a 64 x 256 consumer tile
+// was slower than 128 x 128 at every shape. The two tensor maps of a call
+// are encoded on the host (make_tmap, 126 ns each) and kept by pointer and
+// shape. The split-K weight-gradient GEMM keeps cp.async: its chunks end
+// inside the tensor, where TMA's zero fill does not apply.
 // Requires K % 8 == 0 and N % 8 == 0.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float gelu_erf(float a) {
-  return a * 0.5f * (1.f + erff(a * 0.70710678118654752f));
-}
-
-// The epilogue for columns n .. n + 7 of accumulator row m (dst: its output
-// row, scattered for EPI_ATTN_OUT). The mode is a template argument, so
+// The epilogue for columns n .. n + 7 of one accumulator row, in f32, up to
+// the rounding of the store: kdp is the row's dp multiplier (1 without
+// one) and res its residual's eight bf16 (modes EPI_ATTN_OUT with a
+// residual and EPI_MLP_OUT). EPI_BIAS_GELU's bias and GELU were applied in
+// the accumulator registers already. The mode is a template argument, so
 // each GEMM instantiation carries only its own epilogue.
 template <int kMode>
-__device__ __forceinline__ void epilogue8(const Epilogue& ep, bf16* out,
-                                          long long m, long long dst, int n,
-                                          int ldc, float (&a)[8]) {
+__device__ __forceinline__ void epilogue8(const Epilogue& ep, int n,
+                                          float kdp, const uint4& res,
+                                          float (&a)[8]) {
+  if constexpr (kMode == EPI_BIAS_GELU) return;
   if (ep.bias) {
     float b[8];
     load8(ep.bias + n, b);
 #pragma unroll
     for (int i = 0; i < 8; ++i) a[i] += b[i];
   }
-  bf16* o = out + dst * ldc + n;
-  if constexpr (kMode == EPI_BIAS) {
-    store8(o, a);
-  } else if constexpr (kMode == EPI_BIAS_GELU) {
+  if constexpr (kMode != EPI_BIAS) {
+    float r[8];
+    load8(reinterpret_cast<const bf16*>(&res), r);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = gelu_erf(a[i]);
-    store8(o, a);
-  } else {
-    if (ep.dp) {
-      const float k = ep.dp[m / ep.dp_rows];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] *= k;
-    }
+    for (int i = 0; i < 8; ++i) a[i] *= kdp;
     if constexpr (kMode == EPI_ATTN_OUT) {
       // the product rounds to bf16 first, the residual is a bf16 add
       if (ep.res) {
-        float r[8];
-        load8(ep.res + dst * ldc + n, r);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           a[i] = __bfloat162float(__float2bfloat16(a[i])) + r[i];
       }
     } else {  // EPI_MLP_OUT: the residual is added in f32
-      float r[8];
-      load8(ep.res + dst * ldc + n, r);
 #pragma unroll
       for (int i = 0; i < 8; ++i) a[i] += r[i];
     }
-    store8(o, a);
   }
 }
 
-constexpr int GBM = 128, GBK = 64;
-constexpr int G_A_BYTES = GBM * 128;  // 128 rows of 64 bf16
-__host__ __device__ constexpr int gemm_stages(int bn) { return bn == 128 ? 3 : 4; }
-__host__ __device__ constexpr int gemm_stage_bytes(int bn) { return G_A_BYTES + bn * 128; }
-constexpr size_t gemm_smem(int bn) {
-  return (size_t)gemm_stages(bn) * gemm_stage_bytes(bn) + 1024;
-}
+constexpr int GBM = 128, GBN = 128, GBK = 64;  // a consumer's tile
+constexpr int G_THREADS = 384;  // producer + two consumer warpgroups
+constexpr int G_PRODUCER_REGS = 40, G_CONSUMER_REGS = 232;
+constexpr int G_A_BYTES = GBM * 128, G_STAGE_BYTES = (GBM + GBN) * 128;
+// The epilogue's staging: per consumer warp 16 rows x 32 f32 columns at a
+// time, rows of 36 floats (a quarter-warp's 16-byte reads of two rows fall
+// in disjoint banks)
+constexpr int G_ST_LD = 36;
+constexpr int G_STAGING_BYTES = 8 * 16 * G_ST_LD * 4;  // 8 consumer warps
+constexpr int G_STAGES = (220 * 1024 - G_STAGING_BYTES) / G_STAGE_BYTES;  // 6
+constexpr size_t G_SMEM = 1024 + (size_t)G_STAGES * G_STAGE_BYTES +
+                          G_STAGING_BYTES + 8 * (2 * G_STAGES + 2);
 
-template <int kMode, bool kBkn, int BN>
-__global__ void __launch_bounds__(256, BN == 128 ? 2 : 1)
-gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
+// One CTA per SM walks output tiles j = 0, 1, ... (tile blockIdx.x + j
+// gridDim.x; the column tiles of a row block side by side, so that
+// neighbouring CTAs share A's rows in L2). Warpgroup 0 is the producer:
+// one of its threads issues the TMA copies of the A and B tiles of every
+// k-step of every tile, in that order, into a ring of G_STAGES stages,
+// after waiting on the stage's `empty` mbarrier; the copies complete on
+// its `full` mbarrier. Warpgroups 1 and 2 are the consumers, ping-pong:
+// consumer c takes tiles j = c, c + 2, ..., the whole 128 x 128 tile (two
+// m64 blocks, 128 accumulator registers a thread); it keeps one wgmma
+// group in flight across k-steps and releases a stage once the group after
+// it is issued. The two take turns at their main loops (an mbarrier each,
+// passed on once a warpgroup has issued its last k-step), so that one's
+// epilogue runs while the other's products keep the tensor cores busy,
+// and so that every stage is waited for in the order it was filled (the
+// parity of a wait names the right fill). No CTA-wide barrier runs after
+// the set-up. setmaxnreg moves registers from the producer (40) to the
+// consumers (232).
+template <int kMode, bool kBkn>
+__global__ void __launch_bounds__(G_THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
+                  const __grid_constant__ CUtensorMap tmB,
                   bf16* __restrict__ out, long long M, int N, int K,
                   Epilogue ep) {
-  constexpr int STAGES = gemm_stages(BN), SB = gemm_stage_bytes(BN);
-  constexpr int NACC = BN / 128;
+  constexpr int MB = GBM / 64, STAGES = G_STAGES, SB = G_STAGE_BYTES;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* staging =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + STAGES * SB);
+  const uint32_t full = base + STAGES * SB + G_STAGING_BYTES;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t turn = empty + 8 * STAGES;  // turn[c]: consumer c's
   const int tid = threadIdx.x;
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int n0 = blockIdx.x * BN;
-  const long long m0 = (long long)blockIdx.y * GBM;
+  const int wg = tid >> 7;
+  const int n_tiles = (N + GBN - 1) / GBN;
+  const long long tiles = (M + GBM - 1) / GBM * n_tiles;
   const int nk = (K + GBK - 1) / GBK;
-
-  float acc[NACC][64];
-#pragma unroll
-  for (int h = 0; h < NACC; ++h)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-
-  auto load = [&](int kt, int s) {
-    const uint32_t sa = base + s * SB, sb = sa + G_A_BYTES;
-    const int c = tid & 7, r0 = tid >> 3;
-    const int gk = kt * GBK + c * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + 32 * i;
-      const long long gm = m0 + r;
-      const bool ok = gm < M && gk < K;
-      cp_async16(sa + swz128(r, c), ok ? A + gm * K + gk : A, ok);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
     }
-    if constexpr (!kBkn) {
-#pragma unroll
-      for (int i = 0; i < BN / 32; ++i) {
-        const int r = r0 + 32 * i;
-        const int gn = n0 + r;
-        const bool ok = gn < N && gk < K;
-        cp_async16(sb + swz128(r, c), ok ? Bm + (long long)gn * K + gk : Bm,
-                   ok);
-      }
-    } else {
-      // 64 rows of the reduction x BN columns: blocks of 64 columns, 8 KB
-      // each, rows of 128 bytes
-      constexpr int CPR = BN / 8;  // 16-byte chunks per row
-      const int cc = tid % CPR, q0 = tid / CPR;
-      const int gn = n0 + cc * 8;
-#pragma unroll
-      for (int i = 0; i < 64 * CPR / 256; ++i) {
-        const int kr = q0 + (256 / CPR) * i;
-        const int gkk = kt * GBK + kr;
-        const bool ok = gkk < K && gn < N;
-        cp_async16(sb + (cc >> 3) * 8192 + swz128(kr, cc & 7),
-                   ok ? Bm + (long long)gkk * N + gn : Bm, ok);
-      }
-    }
-  };
-
-  // KEEP wgmma groups stay in flight across the barrier (the wide tile: the
-  // tensor cores never drain between k-tiles); the copies run AHEAD tiles
-  // ahead, into the stage whose last reader every warp is known to have
-  // waited for before the barrier.
-  constexpr int KEEP = BN == 128 ? 0 : 1, AHEAD = STAGES - 1 - KEEP;
-#pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
+    mbar_init(turn, 1);
+    mbar_init(turn + 8, 1);
+    fence_mbar_init();
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<AHEAD - 1>();  // tile kt has landed
-    fence_proxy_async();
-    __syncthreads();  // ... for every thread, and tile kt-1-KEEP is consumed
-    if (kt + AHEAD < nk) load(kt + AHEAD, (kt + AHEAD) % STAGES);
-    cp_async_commit();
-    const uint32_t sa = base + (kt % STAGES) * SB + wg * 8192;
-    const uint32_t sb = base + (kt % STAGES) * SB + G_A_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < GBK / 16; ++ks) {
-      const uint64_t da = wgmma_desc(sa + ks * 32, 16, 1024);
-#pragma unroll
-      for (int h = 0; h < NACC; ++h) {
-        const uint64_t db =
-            kBkn ? wgmma_desc(sb + h * 16384 + ks * 2048, 8192, 1024)
-                 : wgmma_desc(sb + h * 16384 + ks * 32, 16, 1024);
-        wgmma_m64n128k16<0, kBkn ? 1 : 0>(acc[h], da, db, 1);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<KEEP>();
-  }
-
-  // epilogue through this warp's staging tile in the idle ring
-  wgmma_wait<0>();
-  cp_async_wait<0>();
   __syncthreads();
-  float* st = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) +
-                                       (tid >> 5) * STAGE_WARP_BYTES);
-  const int cc = lane & 15, rsel = lane >> 4;
-#pragma unroll
-  for (int h = 0; h < NACC; ++h) {
-    stage_acc(st, acc[h], lane);
-    __syncwarp();
-    const int n = n0 + h * 128 + 8 * cc;
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int row = 2 * it + rsel;
-      const long long gm = m0 + wg * 64 + warp * 16 + row;
-      if (gm < M && n < N) {
-        float v[8];
-        load8(st + row * STAGE_LD + 8 * cc, v);
-        long long dst = gm;
-        if constexpr (kMode == EPI_ATTN_OUT)
-          if (ep.scatter) dst = win_row_to_token(ep.g, gm);
-        epilogue8<kMode>(ep, out, gm, dst, n, N, v);
+
+  if (wg == 0) {
+    // ---- producer: one thread issues the TMA copies of every stage ----
+    setmaxnreg_dec<G_PRODUCER_REGS>();
+    if (tid != 0) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (int)(tile / n_tiles * GBM);
+      const int n0 = (int)(tile % n_tiles) * GBN;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty + 8 * s, phase ^ 1);
+        const uint32_t sa = base + s * SB, sb = sa + G_A_BYTES;
+        mbar_expect_tx(full + 8 * s, SB);
+        tma_load_2d(sa, &tmA, kt * GBK, m0, full + 8 * s);
+        if constexpr (!kBkn) {
+          tma_load_2d(sb, &tmB, kt * GBK, n0, full + 8 * s);
+        } else {
+          // 64 rows of the reduction x 128 columns: two blocks of 64
+          // columns, 8 KB each, rows of 128 bytes
+          tma_load_2d(sb, &tmB, n0, kt * GBK, full + 8 * s);
+          tma_load_2d(sb + 8192, &tmB, n0 + 64, kt * GBK, full + 8 * s);
+        }
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-    __syncwarp();
+    return;
   }
-}
 
-template <int kMode, bool kBkn, int BN>
-int launch_gemm_as(const bf16* A, const bf16* Bm, bf16* out, long long M,
-                   int N, int K, const Epilogue& ep, cudaStream_t stream) {
-  cudaError_t ea = cudaFuncSetAttribute(
-      gemm_wgmma_kernel<kMode, kBkn, BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gemm_smem(BN));
-  if (ea != cudaSuccess) return (int)ea;
-  dim3 grid((N + BN - 1) / BN, (unsigned)((M + GBM - 1) / GBM));
-  gemm_wgmma_kernel<kMode, kBkn, BN><<<grid, 256, gemm_smem(BN), stream>>>(
-      A, Bm, out, M, N, K, ep);
-  LRCE_CHECK_LAUNCH();
-  return 0;
+  // ---- consumers ----
+  setmaxnreg_inc<G_CONSUMER_REGS>();
+  const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const bool leader = (tid & 127) == 0;
+  float* st = staging + (cw * 4 + warp) * (16 * G_ST_LD);
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t tphase = cw == 0 ? 1 : 0;  // consumer 0 goes first
+  long long j = cw;
+  for (long long tile = blockIdx.x + cw * (long long)gridDim.x; tile < tiles;
+       tile += 2LL * gridDim.x, j += 2) {
+    const long long m0 = tile / n_tiles * GBM;
+    const int n0 = (int)(tile % n_tiles) * GBN;
+    float acc[MB][64];
+    mbar_wait(turn + 8 * cw, tphase);
+    tphase ^= 1;
+    long long u = j * nk;  // the ring unit of (tile, k-step 0)
+    for (int kt = 0; kt < nk; ++kt, ++u) {
+      const int s = (int)(u % STAGES);
+      mbar_wait(full + 8 * s, (uint32_t)(u / STAGES) & 1);
+      const uint32_t sa = base + s * SB, sb = sa + G_A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < GBK / 16; ++ks)
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+          wgmma_m64n128k16<0, kBkn ? 1 : 0>(
+              acc[mb], wgmma_desc(sa + mb * 8192 + ks * 32, 16, 1024),
+              kBkn ? wgmma_desc(sb + ks * 2048, 8192, 1024)
+                   : wgmma_desc(sb + ks * 32, 16, 1024),
+              kt > 0 || ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the group before this one is done with its stage
+      if (kt > 0 && leader) mbar_arrive(empty + 8 * (int)((u - 1) % STAGES));
+    }
+    if (leader) mbar_arrive(turn + 8 * (1 - cw));  // the other's main loop
+    wgmma_wait<0>();
+    if (leader) mbar_arrive(empty + 8 * (int)((u - 1) % STAGES));
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) reg_fence(acc[mb]);
+    if constexpr (kMode == EPI_BIAS_GELU) {
+      // + bias and the GELU on the registers: 64 independent erf chains a
+      // thread per m64 block, under the other consumer's products. Against
+      // 8 at a time inside the staging loop: K8's fc1 on slabs of 16,384
+      // rows faster (K8 1.36 -> 1.19 ms a step), fc1 on 451,584 rows slower
+      // (0.512 -> 0.576 ms; PR-4's kernel 0.46), PERF.md PR 6.
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = n0 + 8 * jn + 2 * t;
+        float2 b = make_float2(0.f, 0.f);
+        if (ep.bias && col < N)
+          b = *reinterpret_cast<const float2*>(ep.bias + col);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float* a = &acc[mb][4 * jn + 2 * hf];
+            a[0] = gelu_erf(a[0] + b.x);
+            a[1] = gelu_erf(a[1] + b.y);
+          }
+      }
+    }
+
+    // epilogue through this warp's own staging tile, 32 columns at a time:
+    // lane l then owns columns 8 (l % 4) .. + 7 of rows l / 4 and l / 4 + 8
+    // of each m64 block. A row's output row (scattered for EPI_ATTN_OUT)
+    // and dp multiplier are found once; the residual of two quarters is
+    // loaded ahead of their staging.
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      long long dst[2];
+      float kdp[2];
+      bool live[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const long long gm = m0 + mb * 64 + warp * 16 + g + 8 * hf;
+        live[hf] = gm < M;
+        dst[hf] = gm;
+        kdp[hf] = 1.f;
+        if constexpr (kMode == EPI_ATTN_OUT)
+          if (ep.scatter && live[hf]) dst[hf] = win_row_to_token(ep.g, gm);
+        if constexpr (kMode == EPI_ATTN_OUT || kMode == EPI_MLP_OUT)
+          if (ep.dp && live[hf]) kdp[hf] = ep.dp[gm / ep.dp_rows];
+      }
+#pragma unroll
+      for (int qp = 0; qp < 4; qp += 2) {
+        uint4 res[2][2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int n = n0 + 32 * (qp + q) + 8 * t;
+            res[q][hf] = make_uint4(0, 0, 0, 0);
+            if constexpr (kMode == EPI_ATTN_OUT || kMode == EPI_MLP_OUT)
+              if (ep.res && live[hf] && n < N)
+                res[q][hf] = *reinterpret_cast<const uint4*>(
+                    ep.res + dst[hf] * N + n);
+          }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              *reinterpret_cast<float2*>(st + (g + 8 * hf) * G_ST_LD +
+                                         8 * jj + 2 * t) =
+                  make_float2(acc[mb][4 * (4 * (qp + q) + jj) + 2 * hf],
+                              acc[mb][4 * (4 * (qp + q) + jj) + 2 * hf + 1]);
+          __syncwarp();
+          const int n = n0 + 32 * (qp + q) + 8 * t;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            if (live[hf] && n < N) {
+              float v[8];
+              load8(st + (g + 8 * hf) * G_ST_LD + 8 * t, v);
+              epilogue8<kMode>(ep, n, kdp[hf], res[q][hf], v);
+              store8(out + dst[hf] * N + n, v);
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+  }
 }
 
 int sm_count() {
@@ -550,22 +675,34 @@ int sm_count() {
 template <int kMode, bool kBkn>
 int launch_gemm_mode(const bf16* A, const bf16* Bm, bf16* out, long long M,
                      int N, int K, const Epilogue& ep, cudaStream_t stream) {
-  if (gemm_wide_tile(M, N, K, sm_count()))
-    return launch_gemm_as<kMode, kBkn, 256>(A, Bm, out, M, N, K, ep, stream);
-  return launch_gemm_as<kMode, kBkn, 128>(A, Bm, out, M, N, K, ep, stream);
+  static_assert(G_SMEM <= kMaxSmem, "GEMM: shared memory");
+  if (M >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmA, tmB;
+  int rc = make_tmap(&tmA, A, M, K, K, GBM);
+  if (!rc)
+    rc = kBkn ? make_tmap(&tmB, Bm, K, N, N, 64)
+              : make_tmap(&tmB, Bm, N, K, K, GBN);
+  if (rc) return rc;
+  cudaError_t ea = cudaFuncSetAttribute(
+      gemm_wgmma_kernel<kMode, kBkn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G_SMEM);
+  if (ea != cudaSuccess) return (int)ea;
+  const long long tiles =
+      (long long)((N + GBN - 1) / GBN) * ((M + GBM - 1) / GBM);
+  const unsigned grid =
+      (unsigned)(tiles < sm_count() ? tiles : (long long)sm_count());
+  gemm_wgmma_kernel<kMode, kBkn><<<grid, G_THREADS, G_SMEM, stream>>>(
+      tmA, tmB, out, M, N, K, ep);
+  LRCE_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
 
-// The 128 x 256 tile where the tensor cores bound the product and the wide
-// tiles still fill the card.
-bool gemm_wide_tile(long long M, int N, int K, int sms) {
-  return N % 256 == 0 && K >= 512 && (M + GBM - 1) / GBM * (N / 256) >= sms;
-}
-
 int launch_gemm(const bf16* A, const bf16* Bm, bf16* out, long long M, int N,
                 int K, const Epilogue& ep, cudaStream_t stream, bool b_kn) {
-  if (K % 8 != 0 || N % 8 != 0 || M < 1) return (int)cudaErrorInvalidValue;
+  if (K % 8 != 0 || N % 8 != 0 || M < 1 || K < 8)
+    return (int)cudaErrorInvalidValue;
   if (b_kn) {
     if (ep.mode != EPI_ATTN_OUT) return (int)cudaErrorInvalidValue;
     return launch_gemm_mode<EPI_ATTN_OUT, true>(A, Bm, out, M, N, K, ep,
@@ -743,7 +880,7 @@ unsigned blocks_for(long long work, int threads) {
 
 int launch_gather(const bf16* src, bf16* dst, long long rows,
                   const WinGeom& g, cudaStream_t stream) {
-  if (g.C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (g.C % 8 != 0 || rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const long long work = rows * (g.C / 8);
   gather_rows_kernel<<<blocks_for(work, 256), 256, 0, stream>>>(src, dst,
                                                                 rows, g);

@@ -7,8 +7,9 @@
 //       tokens a CTA per (window group, head) on mma.sync with S and P in
 //       registers (attn_fwd.cu); for other shapes one WMMA CTA per (window,
 //       head) (swin_common.cu);
-//   (c) a bf16 tensor-core GEMM (wgmma fed by a cp.async ring, f32
-//       accumulate in registers), out = A . W^T or A . B, with epilogues
+//   (c) a bf16 tensor-core GEMM (a persistent, warp-specialised CTA: TMA
+//       into a ring of stages, two consumer warpgroups on wgmma in turns,
+//       f32 accumulate in registers), out = A . W^T or A . B, with epilogues
 //       applied from the registers: +bias; +bias and exact-erf GELU; +bias,
 //       x dp, + residual, scattered back to spatial order; + residual in
 //       f32;
@@ -29,6 +30,7 @@
 // the kernels themselves are in swin_common.cu.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -75,6 +77,36 @@ struct Epilogue {
   WinGeom g;
 };
 
+// Window-order row -> spatial token index. Rows follow window_partition:
+// ((((b*nd + id)*nh + ih)*nw + iw)*N + (td*wh + th)*ww + tw). The token of a
+// shifted block is read where jnp.roll(x, -shift) would have put it, and
+// the block's output goes back to the same place, which is the roll by
+// +shift after the block.
+// Rows and tokens are below 2^31 (the launchers check it), so the
+// divisions run in 32 bits, a third of the instructions of 64-bit ones.
+static __device__ __forceinline__ long long win_row_to_token(const WinGeom& g,
+                                                      long long row) {
+  const unsigned r = (unsigned)row;
+  const unsigned t = r % (unsigned)g.N;
+  unsigned wi = r / (unsigned)g.N;
+  const unsigned iw = wi % (unsigned)g.nw; wi /= (unsigned)g.nw;
+  const unsigned ih = wi % (unsigned)g.nh; wi /= (unsigned)g.nh;
+  const unsigned id = wi % (unsigned)g.nd;
+  const unsigned b = wi / (unsigned)g.nd;
+  const unsigned tw = t % (unsigned)g.ww;
+  const unsigned th = (t / (unsigned)g.ww) % (unsigned)g.wh;
+  const unsigned td = t / (unsigned)(g.ww * g.wh);
+  const unsigned d = (id * g.wd + td + g.sd) % (unsigned)g.D;
+  const unsigned h = (ih * g.wh + th + g.sh) % (unsigned)g.H;
+  const unsigned w = (iw * g.ww + tw + g.sw) % (unsigned)g.W;
+  return ((long long)(b * g.D + d) * g.H + h) * (long long)g.W + w;
+}
+
+// Exact-erf GELU in f32.
+static __device__ __forceinline__ float gelu_erf(float a) {
+  return a * 0.5f * (1.f + erff(a * 0.70710678118654752f));
+}
+
 static __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -89,6 +121,18 @@ static __device__ __forceinline__ float warp_max(float v) {
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory per CTA
+
+// A TMA tensor map of a row-major bf16 matrix (rows x cols, row stride ld
+// elements): boxes of 64 columns (128 bytes, stored with the 128-byte
+// swizzle) by box_rows rows, zeros past the edges. The driver's encoder is
+// reached through cudaGetDriverEntryPoint; the last few maps are kept by
+// (pointer, shape), so a call on the same tensors encodes nothing. Returns
+// 0 or a cudaError_t code.
+int make_tmap(CUtensorMap* map, const bf16* ptr, long long rows,
+              long long cols, long long ld, int box_rows);
+// Host nanoseconds of one encode, measured over `n` encodes that miss the
+// cache (chip_smoke prints it).
+double tmap_encode_ns(int n);
 
 // Each returns 0 or a cudaError_t code.
 // (a) LayerNorm of `rows` rows of C; gather != 0 reads row r at its window
@@ -118,9 +162,6 @@ int launch_attn_wmma(const bf16* qkv, bf16* ctx, const float* rel_bias,
 int launch_gemm(const bf16* A, const bf16* Bm, bf16* out, long long M, int N,
                 int K, const Epilogue& ep, cudaStream_t stream,
                 bool b_kn = false);
-// Whether launch_gemm takes its 128 x 256 tile (else 128 x 128) on a card
-// of `sms` SMs.
-bool gemm_wide_tile(long long M, int N, int K, int sms);
 // Rows in window order: dst row r = src row at window token r's spatial
 // position (shift included), C wide.
 int launch_gather(const bf16* src, bf16* dst, long long rows,
@@ -137,6 +178,17 @@ int launch_gemm_tn(const bf16* G, const bf16* A, float* out, long long M,
 // out[i] = sum over s = 0 .. parts-1, in order, of part[s * n + i].
 int launch_sum_parts(const float* part, float* out, int parts, long long n,
                      cudaStream_t stream);
+// The block's back half as one persistent kernel (back_half.cu), C = 128
+// or 256, FF = 4 C: out = h1 + dp2 x fc2(gelu(fc1(LN2 h1))) with h1 = x +
+// dp1 x proj(ctx), ctx (T, C) in window order, x and out in spatial order
+// (rows scattered through g, shift included); dp1, dp2 per sample or null.
+bool back_half_supported(int C);
+int launch_back_half(const bf16* ctx, const bf16* x, bf16* out,
+                     const WinGeom& g, float eps, const bf16* proj_w,
+                     const float* proj_b, const float* ln_s,
+                     const float* ln_b, const bf16* w1, const float* b1,
+                     const bf16* w2, const float* b2, const float* dp1,
+                     const float* dp2, cudaStream_t stream);
 // LN1 (window gather) -> qkv GEMM -> window attention; ctx (window order)
 // is left in ws_tc. Shared by K1/K3, K2 and K6.
 int attention_front(const bf16* x, const WinGeom& g, int num_heads, float eps,

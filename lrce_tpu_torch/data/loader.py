@@ -80,8 +80,20 @@ def default_collate(items: Sequence[tuple]) -> tuple:
                  for f in range(n_fields))
 
 
+class _ProducerError:
+    """What the producer thread puts in the queue in place of a batch when
+    it fails."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
 class DataLoader:
-    """Iterable over prefetched global batches of numpy arrays."""
+    """Iterable over prefetched global batches of numpy arrays.
+
+    Unlike ``lrce_tpu``'s loader, whose consumer waits for ever when a
+    dataset item raises, an exception in the producer is raised here from
+    the iteration."""
 
     def __init__(self, dataset, batch_size: int, num_replicas: int = 1,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 4,
@@ -113,14 +125,20 @@ class DataLoader:
         stop = threading.Event()
 
         def produce():
-            with ThreadPoolExecutor(self.num_workers) as pool:
-                for batch_idx in batches:
-                    if stop.is_set():
-                        return
-                    items = list(pool.map(self.dataset.__getitem__,
-                                          [int(i) for i in batch_idx]))
-                    out_q.put(self.collate(items))
-            out_q.put(None)
+            # an exception in a dataset's __getitem__ or in collate goes
+            # through the queue and is raised by the consumer, who would
+            # otherwise wait for ever on a batch that never comes
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for batch_idx in batches:
+                        if stop.is_set():
+                            return
+                        items = list(pool.map(self.dataset.__getitem__,
+                                              [int(i) for i in batch_idx]))
+                        out_q.put(self.collate(items))
+                out_q.put(None)
+            except BaseException as err:  # noqa: BLE001 - re-raised below
+                out_q.put(_ProducerError(err))
 
         producer = threading.Thread(target=produce, daemon=True)
         producer.start()
@@ -129,6 +147,8 @@ class DataLoader:
                 batch = out_q.get()
                 if batch is None:
                     return
+                if isinstance(batch, _ProducerError):
+                    raise batch.error
                 yield batch
         finally:
             stop.set()

@@ -46,7 +46,8 @@ from torch import nn
 from lrce_tpu_torch.ops.nn import LayerNorm, Linear, gelu, trunc_normal
 from lrce_tpu_torch.ops.swin_block import (fused_ln_mlp, fused_swin_block,
                                             fused_swin_pair)
-from lrce_tpu_torch.ops.window_attn import (fused_window_attention_hsplit,
+from lrce_tpu_torch.ops.window_attn import (attn_bwd_supported,
+                                            fused_window_attention_hsplit,
                                             window_partition, window_reverse)
 
 LN_EPS = 1e-5
@@ -326,6 +327,14 @@ class BasicLayer(nn.Module):
         shifted = any(s > 0 for s in shift)
         mask = consts.shift_mask(dims, window, shift, x.device) if shifted else None
         aligned = dims == (d, h, w)
+        # The route is chosen by shape before any launch, never by catching
+        # a kernel's refusal: the kernels need window-aligned stages, and
+        # with grad mode on the backward needs K4, which takes windows of at
+        # most 160 tokens (16-frame clips give N = 392: the plain block).
+        kernels = use_kernels and aligned and (
+            not torch.is_grad_enabled()
+            or attn_bwd_supported(window[0] * window[1] * window[2],
+                                  c // self.num_heads))
         nwin = tuple(v // wv for v, wv in zip(dims, window))
         heads = self.num_heads
         dt = x.dtype
@@ -336,7 +345,7 @@ class BasicLayer(nn.Module):
             if dp_rates is not None:
                 dp1, dp2 = (drop_path_multipliers(b, dp_rates[j], generator,
                                                   x.device) for _ in range(2))
-            if not (use_kernels and aligned):
+            if not kernels:
                 x = swin_block(blk, x, num_heads=heads, window=window, shift=s,
                                rel_index=rel_index, mask=m, dp1=dp1, dp2=dp2)
                 continue

@@ -23,8 +23,9 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("swin_common.cu", "swin_block.cu", "window_attn.cu",
-           "attn_fwd.cu", "attn_bwd.cu", "mlp_bwd.cu", "ln_mlp.cu", "gemm.cu")
+SOURCES = ("swin_common.cu", "swin_block.cu", "back_half.cu",
+           "window_attn.cu", "attn_fwd.cu", "attn_bwd.cu", "mlp_bwd.cu",
+           "ln_mlp.cu", "gemm.cu")
 HEADERS = ("swin_common.cuh", "hopper.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -38,7 +39,9 @@ _F = ctypes.c_float
 # c_void_p, or ctypes would pass them as 32-bit ints
 _SIGNATURES = {
     "lrce_swin_block_fwd": (
-        [_P, _P] + [_I] * 12 + [_I, _F] + [_P] * 18 + [_I] + [_P] * 3 + [_P]),
+        [_P, _P] + [_I] * 12 + [_I, _F] + [_P] * 18 + [_I, _I] + [_P] * 3
+        + [_P]),
+    "lrce_back_half": [_P] * 3 + [_I] * 11 + [_F] + [_P] * 10 + [_P],
     "lrce_window_attn_fwd": (
         [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 10 + [_I] + [_P] * 2 + [_P]),
     "lrce_window_attn_core": [_P] * 6 + [_I] * 6 + [_P],
@@ -50,7 +53,7 @@ _SIGNATURES = {
         + [_I, _I, _P]),
     "lrce_gemm": [_P, _P, _P] + [_I] * 5 + [_P, _P, _I, _P, _P],
     "lrce_gemm_tn": [_P, _P, _P] + [_I] * 4 + [_P, _P],
-    "lrce_gemm_wide_tile": [_I] * 4,
+    "lrce_tmap_encode_ns": [_I, _P],
     "lrce_ln_rows": [_P, _P] + [_I] * 11 + [_F] + [_P, _P] + [_I] + [_P],
     "lrce_ln_mlp_fwd": (
         [_P, _P] + [_I] * 5 + [_F] + [_P] * 7 + [_P] * 2 + [_P]),

@@ -45,7 +45,7 @@ import torch
 from lrce_tpu_torch.ops import cuda_lib
 from lrce_tpu_torch.ops.nn import (gelu, layer_norm, layer_norm_input_bwd,
                                    matmul_f32)
-from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Window,
+from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Shift, Window,
                                             mask_label_args,
                                             attention_proj_f32, attention_vjp,
                                             attn_fwd_groups,
@@ -57,7 +57,6 @@ from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Window,
                                             splitk_splits, window_partition,
                                             window_reverse)
 
-Shift = Tuple[int, int, int]
 
 
 def _per_sample(dp: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -105,6 +104,91 @@ def swin_pair_plain(x, ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias,
         if shifted:
             x = torch.roll(x, tuple(s), dims)
     return x
+
+
+# ---------------------------------------------------------------------------
+# The back half of a block in one launch (csrc/back_half.cu), C = 128 / 256
+# ---------------------------------------------------------------------------
+
+BACK_HALF_WIDTHS = (128, 256)   # C at which K1 / K3 run it (FF = 4 C)
+
+
+def back_half_supported(c: int, ff: int) -> bool:
+    """Whether K1 / K3 run their back half as one launch at this width:
+    C = 128 or 256 with FF = 4 C (stages 0 and 1). At C = 512 the fc2
+    accumulator of a 64-row tile does not fit a thread's registers, and the
+    back half is four launches."""
+    return c in BACK_HALF_WIDTHS and ff == 4 * c
+
+
+def back_half_plain(ctx, x, proj_w, proj_b, ln2s, ln2b, w1, b1, w2, b2,
+                    dp1: Optional[torch.Tensor], dp2: Optional[torch.Tensor],
+                    window: Window, shift: Shift = NO_SHIFT,
+                    ln_eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of ``swin_back_half``, with ``_block_kernel``'s
+    rounding points: proj + bias in f32, x dp1, rounded, back to spatial
+    order under the shift and added to x in x's dtype (h1); then LN2, the
+    MLP and the residual as ``ln_mlp_plain``."""
+    b, d, h, w, c = x.shape
+    n = window[0] * window[1] * window[2]
+    a = matmul_f32(ctx.reshape(-1, c), proj_w) + proj_b.float()
+    if dp1 is not None:
+        a = a.reshape(b, -1, c) * dp1.reshape(b, 1, 1).float()
+    a = window_reverse(a.to(x.dtype).reshape(-1, n, c), window, b, d, h, w)
+    h1 = x + roll_shift(a, shift, 1)
+    return ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps)
+
+
+def swin_back_half(ctx, x, proj_w, proj_b, ln2s, ln2b, w1, b1, w2, b2,
+                   dp1: Optional[torch.Tensor], dp2: Optional[torch.Tensor],
+                   window: Window, shift: Shift = NO_SHIFT,
+                   ln_eps: float = 1e-5) -> torch.Tensor:
+    """The back half of a Swin block: out = h1 + dp2 * fc2(gelu(fc1(LN2
+    h1))) with h1 = x + dp1 * proj(ctx), where ctx (T, C) holds the
+    attention's output in window order (``window_partition`` of x rolled by
+    -shift) and x, out are (B, D, H, W, C).
+
+    The part of K1 / K3 that ``csrc/back_half.cu`` runs in one launch at C =
+    128 or 256 (``back_half_supported``), h1 and the (T, 4C) hidden on chip;
+    this entry runs it alone, as the tests and ``chip_smoke.py`` do. On
+    CUDA: ctx, x and the matrices bf16 and contiguous, LN parameters,
+    biases and dp1 / dp2 ((B,) or None) f32. No autograd."""
+    if x.device.type == "cpu":
+        return back_half_plain(ctx, x, proj_w, proj_b, ln2s, ln2b, w1, b1,
+                               w2, b2, dp1, dp2, window, shift, ln_eps)
+    name = "swin_back_half"
+    dp1 = None if dp1 is None else dp1.reshape(-1)
+    dp2 = None if dp2 is None else dp2.reshape(-1)
+    check_kernel_args(name, x, window, 1, (ctx, proj_w, w1, w2),
+                      (proj_b, ln2s, ln2b, b1, b2, dp1, dp2))
+    b, d, h, w, c = x.shape
+    ff = w1.shape[0]
+    if not back_half_supported(c, ff):
+        raise ValueError(f"{name}: takes C in {BACK_HALF_WIDTHS} with FF = "
+                         f"4 C, got C = {c}, FF = {ff}")
+    expect_shape(name, ctx, (b * d * h * w, c))
+    expect_shape(name, proj_w, (c, c))
+    for t in (proj_b, ln2s, ln2b, b2):
+        expect_shape(name, t, (c,))
+    expect_shape(name, w1, (ff, c))
+    expect_shape(name, b1, (ff,))
+    expect_shape(name, w2, (c, ff))
+    expect_shape(name, dp1, (b,))
+    expect_shape(name, dp2, (b,))
+    check_shift(name, x, shift)
+    out = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = cuda_lib.library().lib.lrce_back_half(
+        ctx.data_ptr(), x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window,
+        *shift, ln_eps, *(ptr(t) for t in (proj_w, proj_b, ln2s, ln2b, w1,
+                                             b1, w2, b2, dp1, dp2)),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(name, rc)
+    swin_back_half.launches += 1
+    return out
+
+
+swin_back_half.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -385,11 +469,16 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
     check_shift(name, x, shift)
     t = b * d * h * w
     out = torch.empty_like(x)
-    # scratch: (T, C) LN output / ctx, (T, max(3C, FF)) qkv / hidden,
-    # (T, C) h1
+    # the back half in one launch (h1 and the hidden on chip) where its
+    # kernel takes the width, else four launches through device memory
+    one_launch = back_half_supported(c, ff)
+    # scratch: (T, C) LN output / ctx, (T, 3C) qkv (or (T, max(3C, FF)) qkv
+    # / hidden), (T, C) h1 for the four launches
     ws = (torch.empty((t, c), dtype=x.dtype, device=x.device),
-          torch.empty((t, max(3 * c, ff)), dtype=x.dtype, device=x.device),
-          torch.empty((t, c), dtype=x.dtype, device=x.device))
+          torch.empty((t, 3 * c if one_launch else max(3 * c, ff)),
+                      dtype=x.dtype, device=x.device),
+          None if one_launch else torch.empty((t, c), dtype=x.dtype,
+                                              device=x.device))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     labels, off = mask_label_args(mask)
     n = window[0] * window[1] * window[2]
@@ -398,11 +487,13 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
         num_heads, ff, ln_eps, *(ptr(t) for t in (
             ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, mask, labels,
             off, ln2s, ln2b, w1, b1, w2, b2, dp1, dp2)),
-        attn_fwd_groups(t // n, num_heads, sm_count(x)),
-        *(t.data_ptr() for t in ws),
+        attn_fwd_groups(t // n, num_heads, sm_count(x)), int(one_launch),
+        *(ptr(t) for t in ws),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(name, rc)
     counted.launches += 1
+    if one_launch:
+        swin_back_half.launches += 1
     return out
 
 

@@ -441,6 +441,16 @@ def sm_count(x: torch.Tensor) -> int:
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
+ATTN_BWD_MAX_TOKENS = 160   # K4's CTA: ten 16-row key blocks at most
+
+
+def attn_bwd_supported(n: int, head_dim: int) -> bool:
+    """Whether K4 (``window_attention_bwd`` on CUDA) takes windows of n
+    tokens at this head_dim. Its wrapper and the Swin stage's choice of
+    route read this one rule."""
+    return n <= ATTN_BWD_MAX_TOKENS and head_dim in (16, 32)
+
+
 def attn_bwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
     """Window groups of K4's grid: each CTA (group, head) walks its windows,
     keeps its f32 partial of drel and of the qkv-bias gradient on chip and
@@ -484,9 +494,10 @@ def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
     expect_shape(name, g, x.shape)
     check_shift(name, x, shift)
     n = window[0] * window[1] * window[2]
-    if n > 160 or c // num_heads not in (16, 32):
-        raise ValueError(f"{name}: takes windows of at most 160 tokens and "
-                         f"head_dim 16 or 32, got {n} and {c // num_heads}")
+    if not attn_bwd_supported(n, c // num_heads):
+        raise ValueError(f"{name}: takes windows of at most "
+                         f"{ATTN_BWD_MAX_TOKENS} tokens and head_dim 16 or "
+                         f"32, got {n} and {c // num_heads}")
     t = b * d * h * w
     sms = sm_count(x)
     groups = attn_bwd_groups(t // n, num_heads, sms)

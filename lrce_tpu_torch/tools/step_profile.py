@@ -44,6 +44,7 @@ KINDS = (   # first match wins, on the kernel's name; the names of earlier
     ("K5 hidden kernel (fc1 + dhid + GELU backward)", ("mlp_bwd_hidden",)),
     ("split-K weight-gradient GEMM", ("gemm_tn",)),
     ("hand-written GEMM", ("gemm_wgmma", "gemm_bf16_kernel")),
+    ("K1 / K3 back half (proj, LN2, fc1, GELU, fc2)", ("back_half_kernel",)),
     ("window attention forward CTA",
      ("attn_fwd_kernel", "window_attn_kernel")),
     ("LN / gather / row-scale / partial sums (kernels)",

@@ -436,8 +436,9 @@ class AgentBase:
                 and self.optimizer is not None):
             self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
             if "scheduler_state_dict" in ckpt and self.scheduler is not None:
+                # as lrce_tpu: self.lrs keeps the constructor's rates until
+                # the scheduler next steps
                 self.scheduler.load_state_dict(ckpt["scheduler_state_dict"])
-                self.lrs = list(self.scheduler.lrs)
         self.logger.info(f"Succesfully loaded model in {ckpt_path}")
 
 

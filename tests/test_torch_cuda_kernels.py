@@ -370,18 +370,24 @@ def _bf(rng, dev, shape, scale=1.0):
 
 
 # (M, N, K): row tails against the 128-row tile (441 = 3 x 128 + 57, 882,
-# 7056 = 55 x 128 + 16), the narrowest and widest N and K of the flagship
-# (7056, 1024, 512) and (28224, 512, 2048) take the 128 x 256 tile
+# 7056 = 55 x 128 + 16), the narrowest and widest N and K of the flagship;
+# fewer tiles than SMs (441 x 192) and many per consumer warpgroup
 GEMM_SHAPES = [(441, 384, 128), (882, 4096, 128), (7056, 384, 4096),
                (441, 4096, 4096), (441, 192, 64), (7056, 1024, 512),
                (28224, 512, 2048)]
+# the qkv products of stages 0 and 1 at 6 clips (the 128 x 128 tile, many
+# tiles per SM of the persistent grid) and the four of stage 2 at 48 clips
+# (the 128 x 256 tile)
+GEMM_STAGE_SHAPES = [(56448, 384, 128), (14112, 768, 256), (28224, 1536, 512),
+                     (28224, 512, 512), (28224, 2048, 512)]
 GEMM_CASES = [(m, False) for m in G.EPI_MODES] + [(G.EPI_ATTN_OUT, True)]
 
 
 @pytest.mark.parametrize("mode,b_kn", GEMM_CASES,
                          ids=["bias", "bias-gelu", "attn-out", "mlp-out",
                               "attn-out-kn"])
-@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", GEMM_SHAPES + GEMM_STAGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 def test_gemm_epilogues_at_ragged_shapes(dev, shape, mode, b_kn):
     m, n, k = shape
     rng = np.random.default_rng(20)
@@ -400,20 +406,6 @@ def test_gemm_epilogues_at_ragged_shapes(dev, shape, mode, b_kn):
     got = G.gemm_bf16(a, b, **kw)
     assert G.gemm_bf16.launches == before + 1
     _close(got, G.gemm_bf16_plain(a, b, **kw))
-
-
-def test_gemm_tile_picker(dev):
-    """The 128 x 256 tile where the tensor cores bound the product (K >= 512,
-    N a multiple of 256) and the wide tiles still fill the card."""
-    from lrce_tpu_torch.ops import cuda_lib
-
-    pick = cuda_lib.library().lib.lrce_gemm_wide_tile
-    assert pick(28224, 1536, 512, 132) == 1      # stage 2 qkv, 48 clips
-    assert pick(7056, 1024, 512, 132) == 1
-    assert pick(451584, 384, 128, 132) == 0      # stage 0: bound by bytes
-    assert pick(112896, 768, 256, 132) == 0
-    assert pick(7056, 384, 4096, 132) == 0       # N no multiple of 256
-    assert pick(441, 4096, 4096, 132) == 0       # 64 wide tiles < 132 SMs
 
 
 @pytest.mark.parametrize("shape,splits", [((3001, 384, 128), None),
@@ -588,3 +580,116 @@ def test_attn_core_refuses_f32(dev):
     with pytest.raises(ValueError, match="multiple of 16"):
         WA.window_attention_core(qkv[..., :3 * 4 * 24].contiguous(), rel, None,
                                  heads)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K3's one-launch back half (csrc/back_half.cu) at stages 0 and 1, and
+# a train step at N = 392, where K4 refuses the geometry
+# ---------------------------------------------------------------------------
+
+def _back_half_case(rng, dev, dims, with_dp):
+    b, d, h, w, c = dims
+    ff = 4 * c
+
+    def vec(m, scale, base=0.0):
+        return torch.tensor(base + scale * rng.normal(size=m),
+                            dtype=torch.float32, device=dev)
+
+    dp = [torch.tensor(rng.binomial(1, 0.7, b) / 0.7, dtype=torch.float32,
+                       device=dev) if with_dp else None for _ in range(2)]
+    return (_bf(rng, dev, (b * d * h * w, c)), _bf(rng, dev, dims),
+            _bf(rng, dev, (c, c), 1.0 / np.sqrt(c)), vec(c, 0.02),
+            vec(c, 0.2, 1.0), vec(c, 0.1), _bf(rng, dev, (ff, c), 1.0 / np.sqrt(c)),
+            vec(ff, 0.02), _bf(rng, dev, (c, ff), 1.0 / np.sqrt(ff)),
+            vec(c, 0.02), *dp)
+
+
+# the flagship's widths of stages 0 and 1 with its window; 1176 and 294
+# rows are no multiple of the 128-row tile
+@pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
+@pytest.mark.parametrize("shift", [(0, 0, 0), (0, 3, 3)],
+                         ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("dims", [(2, 3, 14, 14, 128), (2, 3, 7, 7, 256)],
+                         ids=["c128", "c256"])
+def test_back_half_at_flagship_widths_twice(dev, dims, shift, with_dp):
+    args = _back_half_case(np.random.default_rng(30), dev, dims, with_dp)
+    before = SB.swin_back_half.launches
+    got = SB.swin_back_half(*args, (3, 7, 7), shift)
+    assert SB.swin_back_half.launches == before + 1
+    _close(got, SB.back_half_plain(*args, (3, 7, 7), shift))
+    assert torch.equal(got, SB.swin_back_half(*args, (3, 7, 7), shift))
+
+
+@pytest.mark.parametrize("c,heads", [(128, 4), (256, 8)])
+def test_k1_k3_at_stages_0_1_run_the_back_half(dev, c, heads):
+    rng = np.random.default_rng(31)
+    dims = (2, 3, 14, 14, c)
+    x = _bf(rng, dev, dims)
+    n = 147
+
+    def vec(m, scale, base=0.0):
+        return torch.tensor(base + scale * rng.normal(size=m),
+                            dtype=torch.float32, device=dev)
+
+    wts = [vec(c, 0.2, 1.0), vec(c, 0.1), _bf(rng, dev, (3 * c, c), c ** -0.5),
+           vec(3 * c, 0.02), _bf(rng, dev, (c, c), c ** -0.5), vec(c, 0.02),
+           vec((heads, n, n), 1.0), vec(c, 0.2, 1.0), vec(c, 0.1),
+           _bf(rng, dev, (4 * c, c), c ** -0.5), vec(4 * c, 0.02),
+           _bf(rng, dev, (c, 4 * c), (4 * c) ** -0.5), vec(c, 0.02)]
+    mask = torch.from_numpy(compute_shift_mask((3, 14, 14), (3, 7, 7),
+                                               (0, 3, 3))
+                            .reshape(1, 2, 2, n, n)).to(dev)
+    before = SB.swin_back_half.launches
+    with torch.no_grad():
+        k1 = (x, *wts[:7], None, *wts[7:], None, None, (3, 7, 7), heads)
+        _close(SB.fused_swin_block(*k1), SB.swin_block_plain(*k1))
+        k3 = (x, *(t[None] for t in wts[:7]), mask,
+              *(t[None] for t in wts[7:]), None, None, (3, 7, 7), heads,
+              ((0, 3, 3),))
+        _close(SB.fused_swin_pair(*k3), SB.swin_pair_plain(*k3))
+    assert SB.swin_back_half.launches == before + 2
+
+
+def test_train_step_at_n392_matches_the_plain_route(dev):
+    """16-frame clips: the window (8, 7, 7) holds N = 392 tokens at stages
+    0-2, which K4 refuses, so those stages take the plain block with grad
+    on; stage 3 (N = 128) takes the kernels. Loss and per-stage gradients
+    within chip_smoke's route-parity limits (1e-2, 1e-1)."""
+    from lrce_tpu_torch.models import swin3d as PS
+
+    cfg = PS.SwinConfig(embed_dim=64, depths=(2, 2, 2, 2),
+                        num_heads=(2, 4, 8, 16), drop_path_rate=0.0)
+    model = PS.SwinTransformer3D(cfg, dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    x = torch.randn((2, 16, 112, 112, 3),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    x = x.bfloat16()
+    before = (SB.fused_swin_block.launches, WA.window_attention_bwd.launches)
+
+    # a fixed random projection of the output: the mean square of a
+    # LayerNorm's output would not depend on its input
+    proj = None
+
+    def run(use_kernels):
+        nonlocal proj
+        model.use_kernels = use_kernels
+        model.zero_grad(set_to_none=True)
+        out = model(x).float()
+        if proj is None:
+            proj = torch.randn(out.shape, generator=torch.Generator()
+                               .manual_seed(2)).to(dev)
+        loss = (out * proj).mean() + out.square().mean()
+        loss.backward()
+        grads = [torch.cat([p.grad.float().reshape(-1) for p in layer.parameters()])
+                 for layer in model.layers]
+        return loss.item(), grads
+
+    lk, gk = run(True)
+    assert SB.fused_swin_block.launches > before[0]          # stage 3
+    assert WA.window_attention_bwd.launches > before[1]
+    lp, gp = run(False)
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() <= 1e-1

@@ -403,6 +403,59 @@ def test_full_state_checkpoint_restores_optimizer_and_scheduler(tiny, tmp_path):
     assert not third.optimizer.state_dict()["state"]
 
 
+def test_load_checkpoint_leaves_lrs_as_lrce_tpu_does(tiny, tmp_path):
+    """A full-state checkpoint whose scheduler has cut the rates: after
+    load_checkpoint, each agent keeps its constructor's rates in ``lrs``
+    (until the scheduler next steps) and holds the restored scheduler."""
+    jcfg, pcfg, params, _, _ = tiny
+    kw = dict(save_full_state=True, async_checkpoint=False)
+    saver = _agent(pcfg, params, _train_args(tmp_path / "port", **kw))
+    jsaver = JA.AgentOE(jcfg, jax.tree.map(jnp.asarray, params),
+                        _train_args(tmp_path / "jax", **kw),
+                        compute_dtype=jnp.float32)
+    for a in (saver, jsaver):
+        for _ in range(4):              # no improvement: patience 1 cuts
+            a.scheduler.step(0.5)
+        a.save_checkpoint(1, "latest")
+    assert saver.scheduler.lrs == jsaver.scheduler.lrs != saver.lrs
+    ours = _agent(pcfg, params, _train_args(tmp_path / "port2", **kw),
+                  log_enabled=False)
+    ours.load_checkpoint(os.path.join(saver.args.ckpt_dir, "latest.pt"))
+    ref = JA.AgentOE(jcfg, jax.tree.map(jnp.asarray, params),
+                     _train_args(tmp_path / "jax2", **kw), log_enabled=False,
+                     compute_dtype=jnp.float32)
+    ref.load_checkpoint(os.path.join(jsaver.args.ckpt_dir, "latest.pt"))
+    assert list(ours.lrs) == list(ref.lrs) == [1e-4, 2e-4, 3e-4]
+    assert ours.scheduler.lrs == ref.scheduler.lrs == saver.scheduler.lrs
+
+
+class _FailsAt(_Items):
+    def __getitem__(self, i):
+        if i == 7:
+            raise KeyError("item 7 is unreadable")
+        return super().__getitem__(i)
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_dataloader_raises_a_dataset_error_instead_of_hanging(workers):
+    import threading
+
+    got = {}
+
+    def consume():
+        try:
+            list(PLd.DataLoader(_FailsAt(11), batch_size=3, shuffle=False,
+                                num_workers=workers))
+        except KeyError as err:
+            got["error"] = err
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(30)      # its own time limit: a hang fails here, not the suite
+    assert not t.is_alive(), "the loader hung on a failing item"
+    assert "item 7" in str(got.get("error"))
+
+
 # ---------------------------------------------------------------------------
 # pretrained
 # ---------------------------------------------------------------------------
