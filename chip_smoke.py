@@ -34,8 +34,12 @@ Phases, each raising on failure (the script then exits non-zero):
      flagship shapes (bf16), at 6 clips (one request) and at the train
      step's 48: K1, K3, K2 (forward); K6 with and without the mask at
      stages 0-2, K4 at stages 0-3, K5 at stages 0-3 (every output: dy / dz,
-     each dW, db and drel); K7 at stage 3 (C = 1024) with and without dp2;
-     K8 at stage 0 (C = 128) without autograd. Max-abs and relative-L2
+     each dW, db and drel); K7 at stage 3 (C = 1024) with and without dp2,
+     and again at 3 clips (T = 441: a row tail past the 128-row tile, an
+     odd sample count); K8 at stage 0 (C = 128) and at C = 256 without
+     autograd. K7 and K8 must launch one kernel a call (torch.profiler)
+     and give the same bits on a second call; the library's fc1 + fc2
+     (two ``torch.matmul``) is printed beside them. Max-abs and relative-L2
      error against the stated tolerance; kernel and plain time (CUDA
      events, after warm-up, order plain-kernel-kernel-plain) beside the
      kernel's bound, the least time the card could take for the call, and
@@ -80,8 +84,9 @@ Phases, each raising on failure (the script then exits non-zero):
      ``best.pt`` reproduces, through ``do_evaluation``, the validation loss
      and metric recorded when it was saved (1e-6 relative);
   7. route parity: one forward + backward at 2 questions, dropout and
-     drop-path off, the same weights and batch, on the kernel route and on
-     the plain route: loss and per-group gradient relative L2 (each Swin
+     drop-path off, the same weights and batch, on the kernel route (with
+     ``ln_mlp=True``: K7 and its backward at stage 3) and on the plain
+     route: loss and per-group gradient relative L2 (each Swin
      stage, BERT, the fusion) against the stated limit;
   8. a JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -331,6 +336,38 @@ def _bound_ms(work):
 
 def _seeded(shape, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen)).cuda().bfloat16()
+
+
+def _one_launch_repeat(name: str, run) -> None:
+    """A wrapper call launches one kernel (torch.profiler), and a second
+    call on the same inputs equals the first bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        first = run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = run()
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[kernels] {name}: {len(kernels)} kernel launch(es) a call "
+          f"{sorted(set(k[:60] for k in kernels))}, repeat bit-identical "
+          f"{torch.equal(first, again)}", flush=True)
+    require(len(kernels) == 1, f"{name}: {len(kernels)} launches a call")
+    require(torch.equal(first, again), f"{name}: a second launch differs")
+
+
+def _matmul_yardstick(name: str, t: int, c: int, ff: int, gen) -> float:
+    """fc1 + fc2 of an MLP as two ``torch.matmul`` calls at (T, C, FF): a
+    yardstick printed beside K7 / K8 (the port never calls it)."""
+    z, hid = _seeded((t, c), gen), _seeded((t, ff), gen)
+    w1, w2 = _seeded((ff, c), gen), _seeded((c, ff), gen)
+    ms = (_cuda_time_ms(lambda: torch.matmul(z, w1.t()))
+          + _cuda_time_ms(lambda: torch.matmul(hid, w2.t())))
+    print(f"[kernels] {name}: torch.matmul fc1 + fc2 at T = {t}, C = {c}, "
+          f"FF = {ff}: {ms:.4f} ms (yardstick)", flush=True)
+    return ms
 
 
 GEMM_REL_L2_F32 = 1e-4     # split-K GEMM, f32 out: only the sum's order differs
@@ -726,6 +763,11 @@ def phase_kernels():
                            lambda: SB.ln_mlp_plain(*k7),
                            _work("K7", clips, stage, with_dp=with_dp),
                            timed=True)
+                    _one_launch_repeat(f"K7 {label} "
+                                       + ("dp2" if with_dp else "no dp2"),
+                                       run_k7)
+                _matmul_yardstick(f"K7 {label}", x.numel() // c, c, 4 * c,
+                                  gen)
                 k5 = (x, g, *mlp[:5], dp, 1e-5)
                 record("K5", LN_MLP_BACKWARD["K5"][stage],
                        label + " dp2", lambda: SB.mlp_bwd(*k5),
@@ -782,6 +824,22 @@ def phase_kernels():
                 record("K8", 1, label, run_k8,
                        lambda: M.fused_mlp_plain(*k8),
                        _work("K8", clips, stage), timed=True)
+                _one_launch_repeat(f"K8 {label}", run_k8)
+                _matmul_yardstick(f"K8 {label}", x.numel() // c, c, 4 * c,
+                                  gen)
+            if stage == 1:
+                # K8 at C = 256, the back half's other width, outside the
+                # step's totals
+                k8w = (x, *mlp, 1e-5)
+
+                def run_k8w():
+                    with torch.no_grad():
+                        return M.fused_mlp(*k8w)
+
+                record("K8", 0, label, run_k8w,
+                       lambda: M.fused_mlp_plain(*k8w),
+                       _work("K8", clips, stage), timed=True)
+                _one_launch_repeat(f"K8 {label}", run_k8w)
             for masked in (False, True):
                 m, s = (mask, SHIFT) if masked else (None, NO_SHIFT)
                 tag = label + (" masked, shift (0,3,3)" if masked
@@ -826,6 +884,25 @@ def phase_kernels():
                        _work("K3", clips, stage, True, True))
             del x, g
             torch.cuda.empty_cache()
+    # K7 where T is no multiple of the 128-row tile, at an odd sample count:
+    # 3 clips, T = 441, with and without dp2 (fc2 in eight slices of FF)
+    clips, train_shape = 3, False
+    d, h, w, c, heads = STAGES[3]
+    x = _seeded((clips, d, h, w, c), gen)
+    mlp = [_block_weights(c, heads, n, gen, None)[k] for k in MLP_KEYS]
+    dp = (torch.rand((clips,), generator=gen) < 0.8).float().cuda() / 0.8
+    by_clips[clips] = totals()
+    for with_dp in (False, True):
+        k7r = (x, *mlp, dp if with_dp else None, 1e-5)
+        tag = f"stage 3 {tuple(x.shape)} " + ("dp2" if with_dp else "no dp2")
+        record("K7", 0, tag, lambda: SB.fused_ln_mlp(*k7r),
+               lambda: SB.ln_mlp_plain(*k7r),
+               _work("K7", clips, 3, with_dp=with_dp))
+        _one_launch_repeat(f"K7 {tag}", lambda: SB.fused_ln_mlp(*k7r))
+    by_clips[N_CLIPS]["K7"]["max_abs_err"] = max(
+        by_clips[N_CLIPS]["K7"]["max_abs_err"],
+        by_clips.pop(clips)["K7"]["max_abs_err"])
+    del x, mlp
     torch.cuda.synchronize()
     for count, res in by_clips.items():
         for k, r in res.items():
@@ -1298,13 +1375,13 @@ def phase_training_run():
 
 
 def phase_route_parity():
-    """One forward + backward, kernel route vs plain route, dropout and
-    drop-path off (training=False, grad enabled), the task loss's
-    gradients per group."""
+    """One forward + backward, kernel route (the stage-3 MLP through K7,
+    ``ln_mlp=True``) vs plain route, dropout and drop-path off
+    (training=False, grad enabled), the task loss's gradients per group."""
     from lrce_tpu_torch.models.e2e import e2e_apply
     from lrce_tpu_torch.train import losses as L
 
-    model = _flagship_train_model()
+    model = _flagship_train_model(ln_mlp=True)
     batch = [torch.from_numpy(a).cuda()
              for a in _train_batch(np.random.default_rng(11), 2)]
 
@@ -1359,7 +1436,9 @@ SOURCES = {
            "lrce_tpu/ops/pallas_window_attn.py:820"),
     "K7": ("fused_ln_mlp", "lrce_tpu_torch/csrc/ln_mlp.cu",
            "lrce_tpu/ops/pallas_swin_block.py:544"),
-    "K8": ("fused_mlp", "lrce_tpu_torch/csrc/ln_mlp.cu",
+    # at C = 128 / 256 (stage 0, where it is held and timed); K7's kernel
+    # at other widths (ops/mlp.mlp_route)
+    "K8": ("fused_mlp", "lrce_tpu_torch/csrc/back_half.cu",
            "lrce_tpu/ops/pallas_mlp.py:86"),
     "K6": ("fused_window_attention", "lrce_tpu_torch/csrc/window_attn.cu",
            "lrce_tpu/ops/pallas_window_attn.py:254"),

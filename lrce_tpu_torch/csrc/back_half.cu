@@ -109,7 +109,10 @@ struct BackHalfArgs {
   WinGeom g;
 };
 
-template <int C>
+// kProj = false: the MLP core alone (K8): the tile's rows of x come by TMA
+// where ctx does (contiguous rows, no window scatter), LN runs on them and
+// x stays as the residual in place of h1; no proj, no dp1.
+template <int C, bool kProj>
 __global__ void __launch_bounds__(BH_THREADS, 1)
 back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
                  const __grid_constant__ CUtensorMap tm_wp,
@@ -144,8 +147,8 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
   __syncthreads();
 
   if (wg == 0) {
-    // ---- producer: one thread issues the TMA copies: the ctx tile, then
-    // per tile KB + 2 NCH weight units
+    // ---- producer: one thread issues the TMA copies: the ctx (x) tile,
+    // then per tile KB (none without proj) + 2 NCH weight units
     setmaxnreg_dec<BH_PRODUCER_REGS>();
     if (tid != 0) return;
     int s = 0, cb = 0;
@@ -175,10 +178,11 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
         cphase ^= 1;
       }
       // Wp, one 64-deep k-block a stage: C rows of 128 bytes
-      for (int kb = 0; kb < KB; ++kb) {
-        tma_load_2d(unit(), &tm_wp, kb * 64, 0, full + 8 * s);
-        next();
-      }
+      if constexpr (kProj)
+        for (int kb = 0; kb < KB; ++kb) {
+          tma_load_2d(unit(), &tm_wp, kb * 64, 0, full + 8 * s);
+          next();
+        }
       for (int f = 0; f < NCH; ++f) {
         // W1 rows f*64 .. + 63, all of C: KB blocks of 64 rows x 128 bytes
         const uint32_t d1 = unit();
@@ -198,8 +202,10 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
   // ---- consumers. Ring units are numbered as the producer fills them;
   // unit u lies in stage u % STAGES, its fill of parity (u / STAGES) & 1.
   // Per tile: Wp k-blocks 0 .. KB-1, then W1(f) = KB + 2f, W2(f) = KB +
-  // 2f + 1. The consumers may take W1(f + 1) before W2(f): a unit's
-  // predecessor in its stage was always taken before.
+  // 2f + 1 (KB = 0 without proj). The consumers may take W1(f + 1)
+  // before W2(f): a unit's predecessor in its stage was always taken
+  // before.
+  constexpr int KP = kProj ? KB : 0;  // Wp units a tile
   setmaxnreg_inc<BH_CONSUMER_REGS>();
   const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -219,7 +225,7 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long m0 = tile * BH_ROWS;
     const uint32_t az = ctxz + cb * L::CTX + cw * 8192;  // this WG's rows
-    const uint32_t u1 = ubase + KB;  // W1(f) = u1 + 2f, W2(f) = u1 + 2f + 1
+    const uint32_t u1 = ubase + KP;  // W1(f) = u1 + 2f, W2(f) = u1 + 2f + 1
     mbar_wait(cfull + 8 * cb, cphase);
 
     // The rows of this thread's fragments: half 0 -> g, half 1 -> g + 8
@@ -229,7 +235,7 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
     for (int hf = 0; hf < 2; ++hf) {
       const long long row = m0 + cw * 64 + warp * 16 + g + 8 * hf;
       live[hf] = row < p.T;
-      k1[hf] = live[hf] && p.dp1 ? p.dp1[row / p.dp_rows] : 1.f;
+      k1[hf] = kProj && live[hf] && p.dp1 ? p.dp1[row / p.dp_rows] : 1.f;
       k2[hf] = live[hf] && p.dp2 ? p.dp2[row / p.dp_rows] : 1.f;
     }
     // x in, out back: as 16-byte chunks, lane l moving chunks l / 8, + 4,
@@ -245,78 +251,114 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
     for (int hf = 0; hf < 2; ++hf) {
       const long long row = m0 + cw * 64 + warp * 16 + cg + 8 * hf;
       clive[hf] = row < p.T;
-      ctok[hf] = clive[hf] ? win_row_to_token(p.g, row) : 0;
+      ctok[hf] = !clive[hf] ? 0 : kProj ? win_row_to_token(p.g, row) : row;
     }
     const uint32_t cbase = h1s + (uint32_t)(ct - (lane & 31) + 4 * cg) * 4;
     __syncwarp();  // the last tile's output has left this warp's words
+    if constexpr (kProj) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
+      for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int jq = 0; jq < C / 32; ++jq) {
-        const int J = 4 * jq + cq;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (clive[hf])
-          v = *reinterpret_cast<const uint4*>(p.x + ctok[hf] * C + 8 * J);
-        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                         cbase + (2 * J + hf) * 1024),
-                     "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w));
-      }
+        for (int jq = 0; jq < C / 32; ++jq) {
+          const int J = 4 * jq + cq;
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (clive[hf])
+            v = *reinterpret_cast<const uint4*>(p.x + ctok[hf] * C + 8 * J);
+          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           cbase + (2 * J + hf) * 1024),
+                       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w));
+        }
+    }
 
     // proj: acc = ctx . Wp^T, one wgmma group in flight across k-blocks
     float acc[NH][64];
-    for (int kb = 0; kb < KB; ++kb) {
-      const uint32_t sb = take(ubase + kb);
-      wgmma_fence();
+    if constexpr (kProj) {
+      for (int kb = 0; kb < KB; ++kb) {
+        const uint32_t sb = take(ubase + kb);
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const uint64_t da =
-            wgmma_desc(az + kb * (BH_ROWS * 128) + ks * 32, 16, 1024);
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t da =
+              wgmma_desc(az + kb * (BH_ROWS * 128) + ks * 32, 16, 1024);
 #pragma unroll
-        for (int h = 0; h < NH; ++h)
-          wgmma_m64n128k16<0, 0>(
-              acc[h], da, wgmma_desc(sb + h * 16384 + ks * 32, 16, 1024),
-              kb > 0 || ks > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      if (kb > 0) give(ubase + kb - 1);
-    }
-    wgmma_wait<0>();
-    give(ubase + KB - 1);
-#pragma unroll
-    for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
-
-    __syncwarp();  // this warp's x chunks are in
-    // h1 = bf16(x + bf16((acc + proj_b) x dp1)), kept as f32 in acc
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = h * 128 + 8 * j + 2 * t;
-        const float2 pb = *reinterpret_cast<const float2*>(p.proj_b + col);
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const uint32_t w = (uint32_t)((h * 16 + j) * 2 + hf);
-          uint32_t xr;
-          asm volatile("ld.shared.u32 %0, [%1];\n"
-                       : "=r"(xr)
-                       : "r"(h1s + (w * 256 + ct) * 4));
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&xr));
-          float* a = &acc[h][4 * j + 2 * hf];
-          const float a0 =
-              __bfloat162float(__float2bfloat16((a[0] + pb.x) * k1[hf]));
-          const float a1 =
-              __bfloat162float(__float2bfloat16((a[1] + pb.y) * k1[hf]));
-          a[0] = __bfloat162float(__float2bfloat16(a0 + xv.x));
-          a[1] = __bfloat162float(__float2bfloat16(a1 + xv.y));
-          sum[hf] += a[0] + a[1];
-          // this thread's own words of h1: word (h, j, hf) at thread ct
-          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(h1s + (w * 256 + ct) * 4),
-                       "r"(pack_bf16x2(a[0], a[1])));
+          for (int h = 0; h < NH; ++h)
+            wgmma_m64n128k16<0, 0>(
+                acc[h], da, wgmma_desc(sb + h * 16384 + ks * 32, 16, 1024),
+                kb > 0 || ks > 0);
         }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kb > 0) give(ubase + kb - 1);
       }
+      wgmma_wait<0>();
+      give(ubase + KB - 1);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
+
+      __syncwarp();  // this warp's x chunks are in
+    }
+    float sum[2] = {0.f, 0.f};
+    if constexpr (kProj) {
+      // h1 = bf16(x + bf16((acc + proj_b) x dp1)), kept as f32 in acc
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = h * 128 + 8 * j + 2 * t;
+          const float2 pb = *reinterpret_cast<const float2*>(p.proj_b + col);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const uint32_t w = (uint32_t)((h * 16 + j) * 2 + hf);
+            uint32_t xr;
+            asm volatile("ld.shared.u32 %0, [%1];\n"
+                         : "=r"(xr)
+                         : "r"(h1s + (w * 256 + ct) * 4));
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&xr));
+            float* a = &acc[h][4 * j + 2 * hf];
+            const float a0 =
+                __bfloat162float(__float2bfloat16((a[0] + pb.x) * k1[hf]));
+            const float a1 =
+                __bfloat162float(__float2bfloat16((a[1] + pb.y) * k1[hf]));
+            a[0] = __bfloat162float(__float2bfloat16(a0 + xv.x));
+            a[1] = __bfloat162float(__float2bfloat16(a1 + xv.y));
+            sum[hf] += a[0] + a[1];
+            // this thread's own words of h1: word (h, j, hf) at thread ct
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                             h1s + (w * 256 + ct) * 4),
+                         "r"(pack_bf16x2(a[0], a[1])));
+          }
+        }
+    } else {
+      // x from the TMA tile, in the accumulators' layout: acc = x in f32,
+      // and each thread's own words of it kept in the h1 area for the
+      // residual (LN below writes z over the same addresses)
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = h * 128 + 8 * j + 2 * t;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const uint32_t w = (uint32_t)((h * 16 + j) * 2 + hf);
+            const int r = warp * 16 + g + 8 * hf;
+            uint32_t xr;
+            asm volatile("ld.shared.u32 %0, [%1];\n"
+                         : "=r"(xr)
+                         : "r"(az + (col >> 6) * (BH_ROWS * 128) +
+                               swz128(r, (col & 63) >> 3) + (col & 7) * 2));
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&xr));
+            float* a = &acc[h][4 * j + 2 * hf];
+            a[0] = xv.x;
+            a[1] = xv.y;
+            sum[hf] += a[0] + a[1];
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                             h1s + (w * 256 + ct) * 4),
+                         "r"(xr));
+          }
+        }
+    }
     // LN2 over the row: the four lanes of a quad hold it
     float mean[2], rstd[2];
 #pragma unroll
@@ -433,7 +475,7 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
       cb = 0;
       cphase ^= 1;
     }
-    ubase += KB + 2 * NCH;
+    ubase += KP + 2 * NCH;
 
     // out = bf16(h1 + (acc + b2) x dp2) over h1's words, then back to
     // spatial order as 16-byte chunks
@@ -473,19 +515,20 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
   }
 }
 
-template <int C>
+template <int C, bool kProj>
 int launch_back_half_c(const BackHalfArgs& a, cudaStream_t stream) {
   using L = BackHalf<C>;
   static_assert(L::SMEM <= kMaxSmem, "back half: shared memory");
   if (a.T >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   CUtensorMap tc, tp, t1, t2;
   int rc = make_tmap(&tc, a.ctx, a.T, C, C, BH_ROWS);
-  if (!rc) rc = make_tmap(&tp, a.proj_w, C, C, C, C);
+  if (!rc && kProj) rc = make_tmap(&tp, a.proj_w, C, C, C, C);
+  if (!kProj) tp = tc;  // not read
   if (!rc) rc = make_tmap(&t1, a.w1, 4 * C, C, C, BH_FC);
   if (!rc) rc = make_tmap(&t2, a.w2, C, 4 * C, 4 * C, C);
   if (rc) return rc;
   cudaError_t e = cudaFuncSetAttribute(
-      back_half_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      back_half_kernel<C, kProj>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::SMEM);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 132;
@@ -493,8 +536,8 @@ int launch_back_half_c(const BackHalfArgs& a, cudaStream_t stream) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long tiles = (a.T + BH_ROWS - 1) / BH_ROWS;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  back_half_kernel<C><<<grid, BH_THREADS, L::SMEM, stream>>>(tc, tp, t1, t2,
-                                                            a);
+  back_half_kernel<C, kProj><<<grid, BH_THREADS, L::SMEM, stream>>>(
+      tc, tp, t1, t2, a);
   LRCE_CHECK_LAUNCH();
   return 0;
 }
@@ -528,8 +571,31 @@ int launch_back_half(const bf16* ctx, const bf16* x, bf16* out,
   a.eps = eps;
   a.g = g;
   if (a.T < 1) return (int)cudaErrorInvalidValue;
-  if (g.C == 128) return launch_back_half_c<128>(a, stream);
-  if (g.C == 256) return launch_back_half_c<256>(a, stream);
+  if (g.C == 128) return launch_back_half_c<128, true>(a, stream);
+  if (g.C == 256) return launch_back_half_c<256, true>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_mlp_core(const bf16* x, bf16* out, long long T, int C, float eps,
+                    const float* ln_s, const float* ln_b, const bf16* w1,
+                    const float* b1, const bf16* w2, const float* b2,
+                    cudaStream_t stream) {
+  BackHalfArgs a = {};
+  a.ctx = x;  // the TMA tile: x's rows, contiguous
+  a.x = x;
+  a.out = out;
+  a.ln_s = ln_s;
+  a.ln_b = ln_b;
+  a.w1 = w1;
+  a.b1 = b1;
+  a.w2 = w2;
+  a.b2 = b2;
+  a.dp_rows = 1;
+  a.T = T;
+  a.eps = eps;
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  if (C == 128) return launch_back_half_c<128, false>(a, stream);
+  if (C == 256) return launch_back_half_c<256, false>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -558,6 +624,22 @@ int lrce_back_half(const void* ctx, const void* x, void* out, int B, int D,
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(dp1),
       static_cast<const float*>(dp2),
+      reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K8 (fused_mlp): out = x + fc2(gelu(fc1(LN x))) for x, out (T, C) bf16,
+// out must not alias x; C = 128 or 256, FF = 4 C. Weights in nn.Linear
+// layout (bf16), LN parameters and biases f32.
+int lrce_fused_mlp(const void* x, void* out, int T, int C, float eps,
+                   const void* ln_s, const void* ln_b, const void* w1,
+                   const void* b1, const void* w2, const void* b2,
+                   void* stream_ptr) {
+  using namespace lrce;
+  return launch_mlp_core(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), T, C, eps,
+      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
       reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 

@@ -4,6 +4,7 @@
 // swin_common.cuh.
 #include "swin_common.cuh"
 
+#include "gemm_tile.cuh"
 #include "hopper.cuh"
 
 #include <cudaTypedefs.h>
@@ -407,55 +408,9 @@ namespace {
 // inside the tensor, where TMA's zero fill does not apply.
 // Requires K % 8 == 0 and N % 8 == 0.
 // ---------------------------------------------------------------------------
-// The epilogue for columns n .. n + 7 of one accumulator row, in f32, up to
-// the rounding of the store: kdp is the row's dp multiplier (1 without
-// one) and res its residual's eight bf16 (modes EPI_ATTN_OUT with a
-// residual and EPI_MLP_OUT). EPI_BIAS_GELU's bias and GELU were applied in
-// the accumulator registers already. The mode is a template argument, so
-// each GEMM instantiation carries only its own epilogue.
-template <int kMode>
-__device__ __forceinline__ void epilogue8(const Epilogue& ep, int n,
-                                          float kdp, const uint4& res,
-                                          float (&a)[8]) {
-  if constexpr (kMode == EPI_BIAS_GELU) return;
-  if (ep.bias) {
-    float b[8];
-    load8(ep.bias + n, b);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] += b[i];
-  }
-  if constexpr (kMode != EPI_BIAS) {
-    float r[8];
-    load8(reinterpret_cast<const bf16*>(&res), r);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] *= kdp;
-    if constexpr (kMode == EPI_ATTN_OUT) {
-      // the product rounds to bf16 first, the residual is a bf16 add
-      if (ep.res) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          a[i] = __bfloat162float(__float2bfloat16(a[i])) + r[i];
-      }
-    } else {  // EPI_MLP_OUT: the residual is added in f32
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] += r[i];
-    }
-  }
-}
-
-constexpr int GBM = 128, GBN = 128, GBK = 64;  // a consumer's tile
-constexpr int G_THREADS = 384;  // producer + two consumer warpgroups
-constexpr int G_PRODUCER_REGS = 40, G_CONSUMER_REGS = 232;
-constexpr int G_A_BYTES = GBM * 128, G_STAGE_BYTES = (GBM + GBN) * 128;
-// The epilogue's staging: per consumer warp 16 rows x 32 f32 columns at a
-// time, rows of 36 floats (a quarter-warp's 16-byte reads of two rows fall
-// in disjoint banks)
-constexpr int G_ST_LD = 36;
-constexpr int G_STAGING_BYTES = 8 * 16 * G_ST_LD * 4;  // 8 consumer warps
-constexpr int G_STAGES = (220 * 1024 - G_STAGING_BYTES) / G_STAGE_BYTES;  // 6
-constexpr size_t G_SMEM = 1024 + (size_t)G_STAGES * G_STAGE_BYTES +
-                          G_STAGING_BYTES + 8 * (2 * G_STAGES + 2);
-
+// The pieces (epilogue8, the constants, the producer's k-step, the
+// consumer's main loop and epilogue) are in gemm_tile.cuh, which K7's
+// persistent kernel (ln_mlp.cu) shares.
 // One CTA per SM walks output tiles j = 0, 1, ... (tile blockIdx.x + j
 // gridDim.x; the column tiles of a row block side by side, so that
 // neighbouring CTAs share A's rows in L2). Warpgroup 0 is the producer:
@@ -513,24 +468,9 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (int)(tile / n_tiles * GBM);
       const int n0 = (int)(tile % n_tiles) * GBN;
-      for (int kt = 0; kt < nk; ++kt) {
-        mbar_wait(empty + 8 * s, phase ^ 1);
-        const uint32_t sa = base + s * SB, sb = sa + G_A_BYTES;
-        mbar_expect_tx(full + 8 * s, SB);
-        tma_load_2d(sa, &tmA, kt * GBK, m0, full + 8 * s);
-        if constexpr (!kBkn) {
-          tma_load_2d(sb, &tmB, kt * GBK, n0, full + 8 * s);
-        } else {
-          // 64 rows of the reduction x 128 columns: two blocks of 64
-          // columns, 8 KB each, rows of 128 bytes
-          tma_load_2d(sb, &tmB, n0, kt * GBK, full + 8 * s);
-          tma_load_2d(sb + 8192, &tmB, n0 + 64, kt * GBK, full + 8 * s);
-        }
-        if (++s == STAGES) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
+      for (int kt = 0; kt < nk; ++kt)
+        gemm_load_kstep<kBkn>(base, full, empty, s, phase, &tmA, &tmB,
+                              kt * GBK, m0, n0);
     }
     return;
   }
@@ -540,7 +480,6 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
   const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const bool leader = (tid & 127) == 0;
   float* st = staging + (cw * 4 + warp) * (16 * G_ST_LD);
-  const int g = lane >> 2, t = lane & 3;
   uint32_t tphase = cw == 0 ? 1 : 0;  // consumer 0 goes first
   long long j = cw;
   for (long long tile = blockIdx.x + cw * (long long)gridDim.x; tile < tiles;
@@ -550,113 +489,10 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     float acc[MB][64];
     mbar_wait(turn + 8 * cw, tphase);
     tphase ^= 1;
-    long long u = j * nk;  // the ring unit of (tile, k-step 0)
-    for (int kt = 0; kt < nk; ++kt, ++u) {
-      const int s = (int)(u % STAGES);
-      mbar_wait(full + 8 * s, (uint32_t)(u / STAGES) & 1);
-      const uint32_t sa = base + s * SB, sb = sa + G_A_BYTES;
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < GBK / 16; ++ks)
-#pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          wgmma_m64n128k16<0, kBkn ? 1 : 0>(
-              acc[mb], wgmma_desc(sa + mb * 8192 + ks * 32, 16, 1024),
-              kBkn ? wgmma_desc(sb + ks * 2048, 8192, 1024)
-                   : wgmma_desc(sb + ks * 32, 16, 1024),
-              kt > 0 || ks > 0);
-      wgmma_commit();
-      wgmma_wait<1>();  // the group before this one is done with its stage
-      if (kt > 0 && leader) mbar_arrive(empty + 8 * (int)((u - 1) % STAGES));
-    }
-    if (leader) mbar_arrive(turn + 8 * (1 - cw));  // the other's main loop
-    wgmma_wait<0>();
-    if (leader) mbar_arrive(empty + 8 * (int)((u - 1) % STAGES));
-#pragma unroll
-    for (int mb = 0; mb < MB; ++mb) reg_fence(acc[mb]);
-    if constexpr (kMode == EPI_BIAS_GELU) {
-      // + bias and the GELU on the registers: 64 independent erf chains a
-      // thread per m64 block, under the other consumer's products. Against
-      // 8 at a time inside the staging loop: K8's fc1 on slabs of 16,384
-      // rows faster (K8 1.36 -> 1.19 ms a step), fc1 on 451,584 rows slower
-      // (0.512 -> 0.576 ms; PR-4's kernel 0.46), PERF.md PR 6.
-#pragma unroll
-      for (int jn = 0; jn < 16; ++jn) {
-        const int col = n0 + 8 * jn + 2 * t;
-        float2 b = make_float2(0.f, 0.f);
-        if (ep.bias && col < N)
-          b = *reinterpret_cast<const float2*>(ep.bias + col);
-#pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            float* a = &acc[mb][4 * jn + 2 * hf];
-            a[0] = gelu_erf(a[0] + b.x);
-            a[1] = gelu_erf(a[1] + b.y);
-          }
-      }
-    }
-
-    // epilogue through this warp's own staging tile, 32 columns at a time:
-    // lane l then owns columns 8 (l % 4) .. + 7 of rows l / 4 and l / 4 + 8
-    // of each m64 block. A row's output row (scattered for EPI_ATTN_OUT)
-    // and dp multiplier are found once; the residual of two quarters is
-    // loaded ahead of their staging.
-#pragma unroll
-    for (int mb = 0; mb < MB; ++mb) {
-      long long dst[2];
-      float kdp[2];
-      bool live[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const long long gm = m0 + mb * 64 + warp * 16 + g + 8 * hf;
-        live[hf] = gm < M;
-        dst[hf] = gm;
-        kdp[hf] = 1.f;
-        if constexpr (kMode == EPI_ATTN_OUT)
-          if (ep.scatter && live[hf]) dst[hf] = win_row_to_token(ep.g, gm);
-        if constexpr (kMode == EPI_ATTN_OUT || kMode == EPI_MLP_OUT)
-          if (ep.dp && live[hf]) kdp[hf] = ep.dp[gm / ep.dp_rows];
-      }
-#pragma unroll
-      for (int qp = 0; qp < 4; qp += 2) {
-        uint4 res[2][2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int n = n0 + 32 * (qp + q) + 8 * t;
-            res[q][hf] = make_uint4(0, 0, 0, 0);
-            if constexpr (kMode == EPI_ATTN_OUT || kMode == EPI_MLP_OUT)
-              if (ep.res && live[hf] && n < N)
-                res[q][hf] = *reinterpret_cast<const uint4*>(
-                    ep.res + dst[hf] * N + n);
-          }
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf)
-              *reinterpret_cast<float2*>(st + (g + 8 * hf) * G_ST_LD +
-                                         8 * jj + 2 * t) =
-                  make_float2(acc[mb][4 * (4 * (qp + q) + jj) + 2 * hf],
-                              acc[mb][4 * (4 * (qp + q) + jj) + 2 * hf + 1]);
-          __syncwarp();
-          const int n = n0 + 32 * (qp + q) + 8 * t;
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            if (live[hf] && n < N) {
-              float v[8];
-              load8(st + (g + 8 * hf) * G_ST_LD + 8 * t, v);
-              epilogue8<kMode>(ep, n, kdp[hf], res[q][hf], v);
-              store8(out + dst[hf] * N + n, v);
-            }
-          }
-          __syncwarp();
-        }
-      }
-    }
+    // the ring unit of (tile, k-step 0) is j * nk
+    gemm_mainloop<kBkn>(acc, base, full, empty, j * nk, nk, leader,
+                        turn + 8 * (1 - cw));
+    gemm_epilogue<kMode>(acc, st, out, M, N, m0, n0, ep, warp, lane);
   }
 }
 

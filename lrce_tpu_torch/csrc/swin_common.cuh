@@ -102,9 +102,33 @@ static __device__ __forceinline__ long long win_row_to_token(const WinGeom& g,
   return ((long long)(b * g.D + d) * g.H + h) * (long long)g.W + w;
 }
 
-// Exact-erf GELU in f32.
+// erf in f32 as XLA computes it, the rational approximation the reference
+// kernels call (_erf_f32, lrce_tpu/ops/pallas_mlp.py; the port's own copy
+// of the coefficients, also in ops/nn.py ERF_ALPHA / ERF_BETA): x clamped
+// to [-4, 4], x P(x^2) / Q(x^2) with P of degree 6 and Q of degree 4,
+// clamped to [-1, 1]. The quotient is __fdividef (one MUFU.RCP and a
+// multiply): Q(x^2) lies in [-2.4, -0.0143], where it keeps 2 ulp.
+static __device__ __forceinline__ float erf_xla(float x) {
+  x = fminf(fmaxf(x, -4.f), 4.f);
+  const float x2 = x * x;
+  float p = -2.72614225801306e-10f;
+  p = fmaf(p, x2, 2.77068142495902e-08f);
+  p = fmaf(p, x2, -2.10102402082508e-06f);
+  p = fmaf(p, x2, -5.69250639462346e-05f);
+  p = fmaf(p, x2, -7.34990630326855e-04f);
+  p = fmaf(p, x2, -2.95459980854025e-03f);
+  p = fmaf(p, x2, -1.60960333262415e-02f);
+  float q = -1.45660718464996e-05f;
+  q = fmaf(q, x2, -2.13374055278905e-04f);
+  q = fmaf(q, x2, -1.68282697438203e-03f);
+  q = fmaf(q, x2, -7.37332916720468e-03f);
+  q = fmaf(q, x2, -1.42647390514189e-02f);
+  return fminf(fmaxf(__fdividef(x * p, q), -1.f), 1.f);
+}
+
+// Exact-erf GELU in f32, the erf as the reference computes it.
 static __device__ __forceinline__ float gelu_erf(float a) {
-  return a * 0.5f * (1.f + erff(a * 0.70710678118654752f));
+  return a * 0.5f * (1.f + erf_xla(a * 0.70710678118654752f));
 }
 
 static __device__ __forceinline__ float warp_sum(float v) {

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("swin_common.cu", "swin_block.cu", "back_half.cu",
            "window_attn.cu", "attn_fwd.cu", "attn_bwd.cu", "mlp_bwd.cu",
            "ln_mlp.cu", "gemm.cu")
-HEADERS = ("swin_common.cuh", "hopper.cuh")
+HEADERS = ("swin_common.cuh", "hopper.cuh", "gemm_tile.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LINK_FLAGS = ("-shared",)
@@ -42,6 +42,7 @@ _SIGNATURES = {
         [_P, _P] + [_I] * 12 + [_I, _F] + [_P] * 18 + [_I, _I] + [_P] * 3
         + [_P]),
     "lrce_back_half": [_P] * 3 + [_I] * 11 + [_F] + [_P] * 10 + [_P],
+    "lrce_fused_mlp": [_P, _P, _I, _I, _F] + [_P] * 6 + [_P],
     "lrce_window_attn_fwd": (
         [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 10 + [_I] + [_P] * 2 + [_P]),
     "lrce_window_attn_core": [_P] * 6 + [_I] * 6 + [_P],
@@ -56,7 +57,7 @@ _SIGNATURES = {
     "lrce_tmap_encode_ns": [_I, _P],
     "lrce_ln_rows": [_P, _P] + [_I] * 11 + [_F] + [_P, _P] + [_I] + [_P],
     "lrce_ln_mlp_fwd": (
-        [_P, _P] + [_I] * 5 + [_F] + [_P] * 7 + [_P] * 2 + [_P]),
+        [_P, _P] + [_I] * 7 + [_F] + [_P] * 7 + [_P] * 4 + [_P]),
 }
 
 

@@ -25,6 +25,35 @@ import torch
 from torch import nn
 
 
+# XLA's f32 erf, the rational approximation the reference kernels compute
+# (``_erf_f32`` of lrce_tpu/ops/pallas_mlp.py): the port's own copy of the
+# coefficients, which the CUDA kernels' GELU (``erf_xla`` in
+# csrc/swin_common.cuh) also holds. P in x^2 from the highest power down,
+# then Q.
+ERF_ALPHA = (-2.72614225801306e-10, 2.77068142495902e-08,
+             -2.10102402082508e-06, -5.69250639462346e-05,
+             -7.34990630326855e-04, -2.95459980854025e-03,
+             -1.60960333262415e-02)
+ERF_BETA = (-1.45660718464996e-05, -2.13374055278905e-04,
+            -1.68282697438203e-03, -7.37332916720468e-03,
+            -1.42647390514189e-02)
+
+
+def erf_rational(x: torch.Tensor) -> torch.Tensor:
+    """erf in f32 as the CUDA kernels compute it: x clamped to [-4, 4], x
+    P(x^2) / Q(x^2), clamped to [-1, 1] (the kernels fuse each step of the
+    polynomials into one FMA and divide approximately)."""
+    x = x.float().clamp(-4.0, 4.0)
+    x2 = x * x
+    p = torch.full_like(x, ERF_ALPHA[0])
+    for a in ERF_ALPHA[1:]:
+        p = p * x2 + a
+    q = torch.full_like(x, ERF_BETA[0])
+    for b in ERF_BETA[1:]:
+        q = q * x2 + b
+    return (x * p / q).clamp(-1.0, 1.0)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, computed in f32."""
     xf = x.float()

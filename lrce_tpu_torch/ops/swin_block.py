@@ -17,10 +17,11 @@ the shifted ones.
 LN2-output cotangent and the MLP's weight gradients.
 
 ``fused_ln_mlp`` (K7) replaces ``_ln_mlp_kernel`` / ``_ln_mlp_fwd_impl``
-(``csrc/ln_mlp.cu``): LN2 + MLP + residual as one call at any C <= 1024, the
-stage-3 route of the Swin tower (C = 1024); its backward is K5 and the LN2
-input backward, as ``_ln_mlp_bwd``. ``ops/mlp.py`` (K8) runs the same entry
-without dp2.
+(``csrc/ln_mlp.cu``): LN2 + MLP + residual as one persistent launch at any
+C <= 1024 (``ln_mlp_supported``), the stage-3 route of the Swin tower (C =
+1024), its work list from ``ln_mlp_plan``; its backward is K5 and the LN2
+input backward, as ``_ln_mlp_bwd``. ``ops/mlp.py`` (K8) runs the same
+kernel without dp2 at the widths its own does not take.
 
 K1 and K3 are ``torch.autograd.Function``s that save only their inputs, as
 ``_block_fwd`` does. Their backward is ``_block_bwd``'s: recompute
@@ -38,7 +39,7 @@ Nothing falls back.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -312,11 +313,6 @@ mlp_bwd.launches = 0
 # K7: LN2 + MLP + residual
 # ---------------------------------------------------------------------------
 
-# The bf16 hidden of one row slab: small enough to stay in the H100's 50 MB
-# L2 between fc1's store and fc2's load.
-HIDDEN_SLAB_BYTES = 16 * 2 ** 20
-
-
 def ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2,
                  dp2: Optional[torch.Tensor], ln_eps: float = 1e-5):
     """Plain version of K7 (and, with dp2 None, of K8), with
@@ -335,24 +331,90 @@ def ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2,
     return (h1.float() + out).to(dt)
 
 
-def mlp_slab_rows(t: int, ff: int, tokens_per_sample: int,
-                  with_dp: bool) -> int:
-    """Rows of one slab of the K7 / K8 kernel: as many as keep the bf16
-    hidden (rows, FF) within ``HIDDEN_SLAB_BYTES``; whole samples when a
-    per-sample dp2 is given (the kernel indexes dp2 from the slab's first
-    row), else whole 128-row GEMM tiles."""
-    rows = max(128, HIDDEN_SLAB_BYTES // (2 * ff))
-    if with_dp:
-        rows = max(1, rows // tokens_per_sample) * tokens_per_sample
-    else:
-        rows = rows // 128 * 128
-    return min(t, rows)
+LN_MLP_TILE = 128       # rows and columns of a GEMM tile of the kernel
+LN_MLP_MAX_SPLITS = 8   # fc2 slices of FF at most
+
+
+class LnMlpPlan(NamedTuple):
+    """The work list of one call of the K7 kernel (``csrc/ln_mlp.cu``): the
+    ``fc1_tiles`` fc1 tiles of each block of 128 rows and, ``lag`` row
+    blocks later, its ``fc2_tiles`` x ``splits`` fc2 tasks (column tile by
+    column tile, the slices of FF of a tile side by side); ``grid`` CTAs,
+    ``counters`` zeroed ints. The LayerNorm is not in the list: three warps
+    of every CTA take its jobs of 2 rows from a ticket of their own."""
+    row_blocks: int
+    fc1_tiles: int
+    fc2_tiles: int
+    splits: int
+    lag: int
+    tasks: int
+    grid: int
+    counters: int
+
+
+def ln_mlp_supported(c: int, ff: int) -> bool:
+    """The widths the K7 kernel takes: C a multiple of 64 up to 1024, FF a
+    multiple of 128."""
+    return 64 <= c <= 1024 and c % 64 == 0 and ff >= 128 and ff % 128 == 0
+
+
+def ln_mlp_plan(t: int, c: int, ff: int, sms: int) -> LnMlpPlan:
+    """The K7 kernel's work list for T rows of C on a card of ``sms`` SMs.
+    fc2 is split over FF into the most slices (a power of two, each a
+    multiple of 64 deep, at most 8) that keep row blocks x column tiles x
+    slices within the 2 x ``sms`` consumer warpgroups: at T = 882, C =
+    1024, 7 x 8 tiles become 224 tasks; at T = 7,056 the 448 tiles fill
+    the card unsplit. A row block's fc2 follows its fc1 ``lag`` row blocks
+    later: two waves of the consumers' fc1 tiles in between."""
+    rb = -(-t // LN_MLP_TILE)
+    nct = -(-c // LN_MLP_TILE)
+    nf1 = ff // LN_MLP_TILE
+    splits = 1
+    while (2 * splits <= LN_MLP_MAX_SPLITS and (ff // 64) % (2 * splits) == 0
+           and rb * nct * 2 * splits <= 2 * sms):
+        splits *= 2
+    lag = -(-4 * sms // nf1)
+    tasks = rb * (nf1 + nct * splits)
+    return LnMlpPlan(rb, nf1, nct, splits, lag, tasks, min(sms, tasks),
+                     3 + rb + rb * nct)
+
+
+def ln_mlp_tasks(plan: LnMlpPlan) -> List[Tuple[str, int, int, int]]:
+    """The tasks of ``plan`` in ticket order, as the kernel decodes them:
+    ("fc1", row block, column tile, 0), ("fc2", row block, column tile,
+    slice)."""
+    out = []
+    for step in range(plan.row_blocks + plan.lag):
+        if step < plan.row_blocks:
+            out += [("fc1", step, i, 0) for i in range(plan.fc1_tiles)]
+        if step >= plan.lag:
+            out += [("fc2", step - plan.lag, i, s)
+                    for i in range(plan.fc2_tiles)
+                    for s in range(plan.splits)]
+    return out
+
+
+# The kernel's counters, per (device, stream): zero when made, and set back
+# to zero by every launch before it ends, so a buffer serves every later
+# call on its stream.
+_LN_MLP_COUNTERS: dict = {}
+
+
+def _ln_mlp_counters(dev: torch.device, n: int) -> torch.Tensor:
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    buf = _LN_MLP_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _LN_MLP_COUNTERS[key] = buf
+    return buf
 
 
 def ln_mlp_forward(counted, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
-    """The plain version on the CPU; on CUDA the kernel
-    (``csrc/ln_mlp.cu``), counted on ``counted`` (``fused_ln_mlp`` or
-    ``ops.mlp.fused_mlp``). dp2: (B,) f32 or None."""
+    """The plain version on the CPU; on CUDA one launch of the K7 kernel
+    (``csrc/ln_mlp.cu``), counted on ``counted`` (``fused_ln_mlp``, or
+    ``ops.mlp.fused_mlp`` at the widths its own kernel does not take).
+    dp2: (B,) f32 or None."""
     if h1.device.type == "cpu":
         return ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps)
     name = counted.__name__
@@ -366,20 +428,25 @@ def ln_mlp_forward(counted, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
     expect_shape(name, b1, (ff,))
     expect_shape(name, w2, (c, ff))
     expect_shape(name, dp2, (b,))
-    if ff % 8:
-        raise ValueError(f"{name}: MLP width {ff} is not a multiple of 8")
-    tokens = d * h * w
-    t = b * tokens
-    slab = mlp_slab_rows(t, ff, tokens, dp2 is not None)
+    if not ln_mlp_supported(c, ff):
+        raise ValueError(f"{name}: takes C a multiple of 64 up to 1024 and "
+                         f"FF a multiple of 128, got C = {c}, FF = {ff}")
+    t = b * d * h * w
+    plan = ln_mlp_plan(t, c, ff, sm_count(h1))
     out = torch.empty_like(h1)
-    ws_z = torch.empty((slab, c), dtype=h1.dtype, device=h1.device)
-    ws_hid = torch.empty((slab, ff), dtype=h1.dtype, device=h1.device)
+    ws_z = torch.empty((t, c), dtype=h1.dtype, device=h1.device)
+    ws_hid = torch.empty((t, ff), dtype=h1.dtype, device=h1.device)
+    ws_part = None if plan.splits == 1 else torch.empty(
+        (plan.row_blocks * LN_MLP_TILE, plan.fc2_tiles * LN_MLP_TILE),
+        dtype=torch.float32, device=h1.device)
+    counters = _ln_mlp_counters(h1.device, plan.counters)
     rc = cuda_lib.library().lib.lrce_ln_mlp_fwd(
-        h1.data_ptr(), out.data_ptr(), t, c, ff, tokens, slab, ln_eps,
-        ln2s.data_ptr(), ln2b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(),
+        h1.data_ptr(), out.data_ptr(), t, c, ff, d * h * w, plan.splits,
+        plan.lag, plan.grid, ln_eps, ln2s.data_ptr(), ln2b.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         None if dp2 is None else dp2.data_ptr(), ws_z.data_ptr(),
-        ws_hid.data_ptr(), torch.cuda.current_stream(h1.device).cuda_stream)
+        ws_hid.data_ptr(), None if ws_part is None else ws_part.data_ptr(),
+        counters.data_ptr(), torch.cuda.current_stream(h1.device).cuda_stream)
     cuda_lib.check(name, rc)
     counted.launches += 1
     return out

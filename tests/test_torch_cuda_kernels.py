@@ -1,5 +1,7 @@
 """The CUDA kernels K1-K8 against their plain PyTorch versions on the card,
-bf16, at a small geometry (K7 and K5 also at C = 1024, K8 at C = 128; the
+bf16, at a small geometry (K7 and K5 also at C = 1024, K7 at one request's
+and one train step's T with one launch a call and bit-identical repeats,
+K8 at C = 128, 256 and 512 likewise; the
 shared wgmma GEMMs on their own at ragged shapes; K4 and K5 at the
 flagship's stage 0 and stage 3 widths and twice over for bit-identity; the
 attention-forward CTA on its own at the flagship's window and at the edges
@@ -264,40 +266,62 @@ def _mlp_args(rng, dev, shape, ff):
     return x, g, args, dp
 
 
-# (B, D, H, W, C), FF: the narrow test geometry; stage 3 with a row tail
-# (T = 441 is no multiple of the 128-row GEMM tile) and rows enough for
-# more than one slab of whole samples
+def _kernel_launches(fn):
+    """fn's result and the kernels one call of it launched (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+# (B, D, H, W, C), FF: the narrow test geometry; stage 3 at 3 clips (T = 441:
+# an odd sample count and a row tail past the 128-row tile), at one request
+# (6 clips, fc2 split over FF) and at a train step (48 clips, unsplit)
 K7_SHAPES = {"c64": ((2, 2, 6, 9, 64), 256), "stage3": ((3, 3, 7, 7, 1024), 4096),
-             "stage3-slabs": ((16, 3, 7, 7, 1024), 4096)}
+             "stage3-6clips": ((6, 3, 7, 7, 1024), 4096),
+             "stage3-48clips": ((48, 3, 7, 7, 1024), 4096)}
 
 
 @pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
 @pytest.mark.parametrize("shape", list(K7_SHAPES))
 def test_k7(dev, shape, with_dp):
+    """One launch a call, within the limits of the plain version, and a
+    second call equal to the first bit for bit."""
     dims, ff = K7_SHAPES[shape]
     x, _, args, dp = _mlp_args(np.random.default_rng(10), dev, dims, ff)
     dp = dp if with_dp else None
     before = SB.fused_ln_mlp.launches
     with torch.no_grad():
         got = SB.fused_ln_mlp(x, *args, dp)
-    assert SB.fused_ln_mlp.launches == before + 1
+        again, kernels = _kernel_launches(lambda: SB.fused_ln_mlp(x, *args, dp))
+    assert SB.fused_ln_mlp.launches == before + 2
+    assert kernels == 1
     _close(got, SB.ln_mlp_plain(x, *args, dp))
-    if shape == "stage3-slabs":
-        t = dims[0] * dims[1] * dims[2] * dims[3]
-        assert SB.mlp_slab_rows(t, ff, t // dims[0], with_dp) < t
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("shape", [((2, 2, 6, 9, 64), 256),
-                                   ((2, 3, 56, 56, 128), 512)],
-                         ids=["c64", "stage0"])
+                                   ((2, 3, 56, 56, 128), 512),
+                                   ((2, 3, 28, 28, 256), 1024),
+                                   ((3, 3, 7, 7, 512), 2048)],
+                         ids=["c64", "stage0", "c256", "c512"])
 def test_k8(dev, shape):
+    """C = 128 / 256 on the back half's core, the other widths on K7's
+    kernel (``mlp_route``): one launch a call, bit-identical repeats."""
     dims, ff = shape
     x, _, args, _ = _mlp_args(np.random.default_rng(11), dev, dims, ff)
     before = M.fused_mlp.launches
     with torch.no_grad():
         got = M.fused_mlp(x, *args)
-    assert M.fused_mlp.launches == before + 1
+        again, kernels = _kernel_launches(lambda: M.fused_mlp(x, *args))
+    assert M.fused_mlp.launches == before + 2
+    assert kernels == 1
     _close(got, M.fused_mlp_plain(x, *args))
+    assert torch.equal(got, again)
 
 
 def test_k5_at_stage3_width(dev):

@@ -9,6 +9,10 @@ numpy-seeded inputs on both sides:
     ``fused_ln_mlp`` (backward ``_mlp_bwd_impl`` in interpret mode);
   - ``fused_mlp_plain`` and ``fused_mlp``'s gradients against the JAX
     ``fused_mlp`` (Pallas forward in interpret mode, XLA-equivalent VJP);
+  - the K7 kernel's work list (``ln_mlp_plan``), its fc2 slices summed in
+    order against ``ln_mlp_plain``, and K8's route by width;
+  - the port's copy of the reference's rational erf (the kernels' GELU)
+    against ``_erf_f32`` and ``torch.erf``;
   - a (W-MSA, SW-MSA) pair of Swin blocks on the port's C >
     ``BLOCK_KERNEL_MAX_C`` route with ``ln_mlp=True`` against
     ``lrce_tpu.models.swin3d.swin_block(use_pallas="hsplit")`` with
@@ -24,6 +28,8 @@ approximation in the Pallas kernels, libm's here); 5e-4 for the two-block
 route, which chains K2, K4, K5 and K7 twice.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +41,9 @@ from lrce_tpu.models import swin3d as S
 from lrce_tpu.ops import pallas_mlp as PM
 from lrce_tpu.ops import pallas_swin_block as PB
 from lrce_tpu_torch.models import swin3d as PS
+from lrce_tpu_torch.ops import cuda_lib
 from lrce_tpu_torch.ops import mlp as M
+from lrce_tpu_torch.ops import nn as NN
 from lrce_tpu_torch.ops import swin_block as SB
 from lrce_tpu_torch.utils.convert import swin_state_dict
 
@@ -152,22 +160,136 @@ def test_fused_mlp_matches_jax(shape):
         assert torch.equal(M.fused_mlp(xt, *leaves, 1e-5), got.detach())
 
 
-def test_slab_rows_hold_whole_samples_and_bound_the_workspace():
-    """The row slabs of the CUDA entry: within the byte budget, whole
-    samples when dp2 indexes them, never more than T."""
-    budget = SB.HIDDEN_SLAB_BYTES
-    for t, ff, tokens, with_dp in [(882, 4096, 147, True),
-                                   (7056, 4096, 147, True),
-                                   (7056, 4096, 147, False),
-                                   (451584, 512, 9408, False),
-                                   (56448, 512, 9408, True), (294, 256, 147, True)]:
-        rows = SB.mlp_slab_rows(t, ff, tokens, with_dp)
-        assert 1 <= rows <= t
-        if with_dp:
-            assert rows % tokens == 0
-            assert rows == tokens or rows * ff * 2 <= budget
+# ---------------------------------------------------------------------------
+# The K7 kernel's work list and K8's route, as the CUDA wrappers pass them
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("t,c,ff", [(882, 1024, 4096), (7056, 1024, 4096),
+                                    (441, 1024, 4096), (108, 64, 256),
+                                    (294, 512, 2048)])
+def test_ln_mlp_plan_orders_every_task_after_its_inputs(t, c, ff):
+    """The ticket order: an fc2 task after every fc1 tile of its row block
+    and of the ``lag`` row blocks after it; every fc1 tile and fc2 slice
+    exactly once (the LayerNorm's jobs are not in the list)."""
+    plan = SB.ln_mlp_plan(t, c, ff, H100_SMS)
+    tasks = SB.ln_mlp_tasks(plan)
+    assert len(tasks) == plan.tasks
+    assert plan.row_blocks == -(-t // 128) and plan.grid <= H100_SMS
+    seen_fc1 = {}
+    for kind, rb, i, s in tasks:
+        assert 0 <= rb < plan.row_blocks
+        if kind == "fc1":
+            seen_fc1[rb] = seen_fc1.get(rb, 0) + 1
         else:
-            assert rows == t or (rows % 128 == 0 and rows * ff * 2 <= budget)
+            assert kind == "fc2" and seen_fc1.get(rb) == plan.fc1_tiles
+    # a row block's fc2 comes lag row blocks of fc1 after its own fc1
+    first_fc2 = {}
+    for pos, (kind, rb, i, s) in enumerate(tasks):
+        if kind == "fc2":
+            first_fc2.setdefault(rb, pos)
+    for rb, pos in first_fc2.items():
+        ahead = min(rb + plan.lag, plan.row_blocks) - 1
+        assert ("fc1", ahead, plan.fc1_tiles - 1, 0) in tasks[:pos]
+    assert sorted(i for kind, rb, i, s in tasks if kind == "fc1") == sorted(
+        list(range(plan.fc1_tiles)) * plan.row_blocks)
+    fc2 = [(rb, i, s) for kind, rb, i, s in tasks if kind == "fc2"]
+    assert sorted(fc2) == [(rb, i, s) for rb in range(plan.row_blocks)
+                           for i in range(plan.fc2_tiles)
+                           for s in range(plan.splits)]
+    assert plan.counters == 3 + plan.row_blocks * (1 + plan.fc2_tiles)
+
+
+@pytest.mark.parametrize("t,splits", [(882, 4), (7056, 1), (441, 8)])
+def test_ln_mlp_plan_splits_fc2_to_fill_the_consumers(t, splits):
+    """S fills the 2 x 132 consumer warpgroups: one request (7 x 8 fc2
+    tiles) splits FF in four, a 48-clip step (56 x 8) not at all."""
+    plan = SB.ln_mlp_plan(t, 1024, 4096, H100_SMS)
+    assert plan.splits == splits
+    tiles = plan.row_blocks * plan.fc2_tiles
+    assert plan.splits == 1 or tiles * plan.splits <= 2 * H100_SMS
+    assert (plan.splits == SB.LN_MLP_MAX_SPLITS
+            or tiles * 2 * plan.splits > 2 * H100_SMS)
+    assert (4096 // 64) % plan.splits == 0
+
+
+def _ln_mlp_by_plan(h1, ln2s, ln2b, w1, b1, w2, b2, dp2, plan, eps=1e-5):
+    """The kernel's arithmetic in its order, f32: LN and fc1 per row block,
+    fc2 per slice of FF, the slices' partials summed in slice order, then
+    + b2, x the row's sample dp, + h1."""
+    c = h1.shape[-1]
+    x = h1.reshape(-1, c)
+    t = x.shape[0]
+    tokens = t // h1.shape[0]
+    rows = torch.arange(t)
+    dp = torch.ones(t) if dp2 is None else dp2[rows // tokens]
+    ff = w1.shape[0]
+    width = ff // plan.splits
+    out = torch.empty_like(x)
+    for rb in range(plan.row_blocks):
+        r = slice(128 * rb, min(t, 128 * rb + 128))
+        z = SB.layer_norm(x[r], ln2s, ln2b, eps)
+        hid = SB.gelu(z @ w1.T + b1)
+        acc = None
+        for s in range(plan.splits):
+            k = slice(s * width, (s + 1) * width)
+            part = hid[:, k] @ w2[:, k].T
+            acc = part if acc is None else acc + part
+        out[r] = x[r] + (acc + b2) * dp[r, None]
+    return out.reshape(h1.shape)
+
+
+@pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
+def test_ln_mlp_slices_summed_in_order_match_the_plain_version(with_dp):
+    """At f32 the work list's arithmetic (fc2 in S = 4 slices summed in
+    order, dp2 by each row's own sample) equals ``ln_mlp_plain`` within
+    1e-6 of the output's largest magnitude (f32 sums of 256 products in
+    another order; a slice left out or a row given another sample's dp2
+    would be off by order 1): a ragged row count (T = 5 x 63 = 315), an
+    odd sample count."""
+    dims, ff = (5, 1, 7, 9, 64), 256
+    h1, a, dp2, _ = _case(dims, ff, 34, with_dp)
+    plan = SB.ln_mlp_plan(315, 64, ff, H100_SMS)._replace(splits=4)
+    args = [torch.from_numpy(h1), *_port_args(a),
+            None if dp2 is None else torch.from_numpy(dp2)]
+    got = _ln_mlp_by_plan(*args, plan).numpy()
+    want = SB.ln_mlp_plain(*args, 1e-5).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("c,ff,route", [(128, 512, "core"), (256, 1024, "core"),
+                                        (64, 256, "ln_mlp"),
+                                        (512, 2048, "ln_mlp"),
+                                        (1024, 4096, "ln_mlp"),
+                                        (128, 256, "ln_mlp"),
+                                        (32, 128, "none"), (96, 384, "none"),
+                                        (1024, 4000, "none")])
+def test_fused_mlp_routes_by_width(c, ff, route):
+    """K8's kernel by width: the back half's one-CTA core at C = 128 / 256
+    with FF = 4 C, K7's kernel at the other widths it takes, else none (the
+    wrapper raises before any launch)."""
+    assert M.mlp_route(c, ff) == route
+    assert SB.ln_mlp_supported(c, ff) == (route == "ln_mlp" or c in (128, 256))
+
+
+def test_erf_rational_is_the_references_erf():
+    """The port's copy of XLA's rational erf (``ops/nn.erf_rational``, the
+    GELU's erf in the CUDA kernels) over [-5, 5]: within 2 ulp of
+    ``_erf_f32`` of the Pallas kernels (bit-identical here: the same f32
+    steps), within 4.2e-7 (7 ulp near |erf| = 1) of ``torch.erf``; and the
+    CUDA header holds the same coefficients in the same order."""
+    x = np.linspace(-5.0, 5.0, 400001, dtype=np.float32)
+    ours = NN.erf_rational(torch.from_numpy(x)).numpy()
+    ref = np.asarray(PM._erf_f32(jnp.asarray(x)))
+    ulp = np.spacing(np.abs(ref))
+    assert (np.abs(ours - ref) <= 2 * ulp).all()
+    assert np.abs(ours - torch.erf(torch.from_numpy(x)).numpy()).max() <= 4.2e-7
+    header = (cuda_lib.CSRC / "swin_common.cuh").read_text()
+    body = header[header.index("float erf_xla("):header.index("float gelu_erf(")]
+    coeffs = [float(v) for v in re.findall(r"(-?\d\.\d+e-\d+)f", body)]
+    assert coeffs == list(NN.ERF_ALPHA + NN.ERF_BETA)
 
 
 # ---------------------------------------------------------------------------
