@@ -88,7 +88,27 @@ Phases, each raising on failure (the script then exits non-zero):
      ``ln_mlp=True``: K7 and its backward at stage 3) and on the plain
      route: loss and per-group gradient relative L2 (each Swin
      stage, BERT, the fusion) against the stated limit;
-  8. a JSON line of kernels, then the last line
+  8. cli: the file-based path through the command lines a user runs. A
+     TGIF-frameqa directory made from a seed in a temporary directory (8
+     GIFs of 12-40 frames written by ``write_gif`` without an image
+     library, seven at 224 x 224 and one at 320 x 240; 32 train and 16 test
+     questions in the tab-separated annotation files; a vocab.txt). The
+     port's native library (``lrce_tpu_torch/native``) is built with g++
+     and required, and so is its WordPiece on the dataset's tokenizer; one
+     item's uint8 clips from ``E2ETGIFDataset`` must equal the palette
+     colours of the frames written at ``clip_indices`` byte for byte, the
+     320 x 240 GIF's must be (3, 5, 224, 224, 3) uint8; the host ms per item
+     of the native decode, the resize and the tokenizer are timed on the
+     dataset alone. Then ``lrce_tpu_torch.cli.train.main`` for one epoch of
+     the tgif-frameqa configuration at full width (batch 8: 4 train steps
+     and 2 validation steps, async checkpoints): finite losses, every
+     group's parameters moved, ``config.json`` and ``best.pt`` written,
+     K1 11, K3 11, K2 2, K6 22, K5 22, K4 24 launches on every train step;
+     and ``lrce_tpu_torch.cli.eval.main`` on that ``best.pt`` over the test
+     split: a finite loss and accuracy, K1 11, K3 11, K2 2 a step. One
+     ``[cli]`` line gives both walls, the train steps' device ms, the
+     loader-wait share of each step, the peak device memory and the card;
+  9. a JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
@@ -170,6 +190,24 @@ KERNEL_ORDER = ("K1", "K3", "K2", "K7", "K8", "K6", "K5", "K4")
 PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense
 PEAK_BYTES_PER_S = 3.35e12
 EVAL_REPRODUCE_REL = 1e-6
+# phase_cli: a TGIF-frameqa dataset on disk, (width, height, frames) per GIF
+# (most at 224 x 224, where the resize is the identity; one at 320 x 240,
+# where the native resize runs), questions per split (the CLIs' default
+# batch of 20: 20 train steps, far more than the loader's lookahead of
+# CLI_LOOKAHEAD batches, so the steps after it show whether the loader keeps
+# up), the items timed alone on the host
+CLI_GIFS = ((224, 224), (224, 224), (224, 224), (224, 224), (224, 224),
+            (224, 224), (224, 224), (320, 240))
+CLI_FRAMES = (12, 40)
+CLI_TRAIN_QUESTIONS, CLI_TEST_QUESTIONS = 400, 40
+CLI_HOST_ITEMS = 32
+# batches the train loop can draw without waiting once its first step ends:
+# the loader's queue (2) and the batch its producer holds (1);
+# device_prefetch pulls its depth (2) and one more before that step
+CLI_LOOKAHEAD = 3
+CLI_SUBJECTS = ("man", "woman", "dog", "cat", "girl", "boy")
+CLI_VERBS = ("doing", "holding", "wearing", "eating")
+CLI_ANSWERS = ("guitar", "hat", "ball", "dance", "red", "food", "phone")
 
 
 class SmokeFailure(RuntimeError):
@@ -1427,6 +1465,399 @@ def phase_route_parity():
     return worst
 
 
+# A GIF writer with no image library: a global 256-colour palette, full
+# frames, no transparency, and an LZW stream that never compresses. With a
+# minimum code size of 8 every literal is a 9-bit code; a decoder adds a
+# table entry for each code after the first since the last clear code, and
+# widens its codes to 10 bits when the table reaches 512 entries, so a clear
+# code before every 254 literals keeps the table at 511 and the width at 9.
+GIF_LZW_RUN = 254
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """The LZW stream of one frame's palette indices (8-bit minimum code
+    size), one literal code per pixel."""
+    px = indices.reshape(-1).astype(np.uint16)
+    runs = -(-px.size // GIF_LZW_RUN)
+    pad = runs * GIF_LZW_RUN - px.size
+    body = np.concatenate([px, np.zeros(pad, np.uint16)]).reshape(
+        runs, GIF_LZW_RUN)
+    codes = np.concatenate([np.full((runs, 1), 256, np.uint16), body],
+                           axis=1).reshape(-1)
+    codes = np.append(codes[:codes.size - pad], np.uint16(257))  # end code
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1)
+    return np.packbits(bits.astype(np.uint8).reshape(-1),
+                       bitorder="little").tobytes()
+
+
+def _gif_blocks(data: bytes) -> bytes:
+    """``data`` as GIF sub-blocks of at most 255 bytes, then the
+    terminator."""
+    out = bytearray()
+    for i in range(0, len(data), 255):
+        chunk = data[i:i + 255]
+        out.append(len(chunk))
+        out += chunk
+    out.append(0)
+    return bytes(out)
+
+
+def write_gif(path: str, frames: np.ndarray, palette: np.ndarray) -> None:
+    """``frames``: (n, h, w) uint8 palette indices; ``palette``: (256, 3)
+    uint8 RGB. Frame k decodes to ``palette[frames[k]]``."""
+    n, h, w = frames.shape
+    out = bytearray(b"GIF89a")
+    out += np.array([w, h], "<u2").tobytes()
+    out += bytes([0xF7, 0, 0])  # global table of 2^(7+1) colours; bg 0
+    out += np.ascontiguousarray(palette, np.uint8).tobytes()
+    for k in range(n):
+        # graphic control: disposal 1 (leave), no transparency, 40 ms
+        out += bytes([0x21, 0xF9, 4, 0x04, 4, 0, 0, 0])
+        out += b"\x2c" + np.array([0, 0, w, h], "<u2").tobytes() + b"\x00"
+        out += bytes([8]) + _gif_blocks(_gif_lzw(frames[k]))
+    out += b"\x3b"
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def write_tgif_frameqa(root: str, seed: int) -> dict:
+    """A TGIF-frameqa dataset directory under ``root``, made from ``seed``:
+    ``gifs/`` (CLI_GIFS, CLI_FRAMES frames each), ``annotations/
+    {Train,Test,Total}_frameqa_question.csv`` (CLI_TRAIN_QUESTIONS and
+    CLI_TEST_QUESTIONS questions over the GIFs, Total = both) and a
+    ``vocab.txt`` of the words used. Returns {gif name: (frames, palette)}
+    and the vocab's path."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "gifs"))
+    os.makedirs(os.path.join(root, "annotations"))
+    gifs = {}
+    for i, (w, h) in enumerate(CLI_GIFS):
+        name = f"tumblr_{i:02d}"
+        n = int(rng.integers(CLI_FRAMES[0], CLI_FRAMES[1] + 1))
+        frames = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
+        palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+        write_gif(os.path.join(root, "gifs", f"{name}.gif"), frames, palette)
+        gifs[name] = (frames, palette)
+    names = sorted(gifs)
+
+    def rows(count):
+        out = []
+        for _ in range(count):
+            g = int(rng.integers(len(names)))
+            q = (f"what is the {CLI_SUBJECTS[rng.integers(len(CLI_SUBJECTS))]}"
+                 f" {CLI_VERBS[rng.integers(len(CLI_VERBS))]} ?")
+            a = CLI_ANSWERS[rng.integers(len(CLI_ANSWERS))]
+            out.append(f"{names[g]}\t{q}\t{a}\t{g}")
+        return out
+
+    header = "gif_name\tquestion\tanswer\tvid_id"
+    train, test = rows(CLI_TRAIN_QUESTIONS), rows(CLI_TEST_QUESTIONS)
+    for split, body in (("Train", train), ("Test", test),
+                        ("Total", train + test)):
+        with open(os.path.join(root, "annotations",
+                               f"{split}_frameqa_question.csv"), "w") as f:
+            f.write("\n".join([header] + body) + "\n")
+    vocab = os.path.join(root, "vocab.txt")
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "what", "is",
+             "the", "?", *CLI_SUBJECTS, *CLI_VERBS, *CLI_ANSWERS]
+    with open(vocab, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return {"gifs": gifs, "vocab": vocab}
+
+
+def _cli_host_ms(dataset) -> dict:
+    """Host ms per item of the loader's work, on the dataset's first
+    CLI_HOST_ITEMS items alone: native GIF probe + decode (up to the last
+    sampled frame), the resize of the 15 sampled frames, the tokenizer, and
+    the whole ``dataset[i]``."""
+    from lrce_tpu_torch import native
+    from lrce_tpu_torch.data.sampling import clip_indices
+
+    sums = {"decode": 0.0, "resize": 0.0, "tokenize": 0.0, "item": 0.0}
+    items = min(CLI_HOST_ITEMS, len(dataset))
+    for i in range(items):
+        path = os.path.join(dataset.videos_path, dataset._get_video_name(i))
+        t0 = time.perf_counter()
+        _, _, n = native.gif_probe(path)
+        idx = clip_indices(n, dataset.frames_per_clip, dataset.temporal_scale)
+        frames = native.gif_decode(path, max_frames=int(idx.max()) + 1)
+        t1 = time.perf_counter()
+        for j in idx.reshape(-1):
+            native.resize_bilinear(frames[int(j)], dataset.frame_size)
+        t2 = time.perf_counter()
+        dataset._get_texts(i)
+        t3 = time.perf_counter()
+        dataset[i]
+        t4 = time.perf_counter()
+        for key, dt in zip(sums, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            sums[key] += dt * 1e3
+    return {k: v / items for k, v in sums.items()}
+
+
+def phase_cli(card: str):
+    """The file-based path through the port's command lines: a TGIF-frameqa
+    dataset written to disk (GIFs by ``write_gif``, tab-separated questions,
+    a vocab.txt), the native library built and required, decoded clips held
+    byte for byte against the frames written, then ``cli.train.main`` for
+    one epoch at full width (Swin-B, BERT-base, 12 fusion layers, oe, 1000
+    classes) and ``cli.eval.main`` on its ``best.pt``."""
+    from lrce_tpu_torch import native
+    from lrce_tpu_torch.cli import eval as cli_eval
+    from lrce_tpu_torch.cli import train as cli_train
+    from lrce_tpu_torch.config import parse_arg_eval, parse_arg_train
+    from lrce_tpu_torch.data.sampling import clip_indices
+
+    core, video = native.built(native.CORE), native.built(native.VIDEO)
+    require(core.lib is not None and native.native_available(),
+            "the native library did not build")
+    print(f"[cli] native library: g++ {core.build_seconds:.2f} s; video "
+          f"library (libav*) "
+          f"{'built, g++ %.2f s' % video.build_seconds if video.lib else 'not built'}",
+          flush=True)
+    train_step = {"K7": 0, "K8": 0,
+                  **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
+                                            **CALLS_PER_BACKWARD}.items()}}
+    eval_step = {"K6": 0, "K5": 0, "K4": 0, "K7": 0, "K8": 0,
+                 **{k: sum(v) for k, v in CALLS_PER_FORWARD.items()}}
+    real_factory, real_loader = cli_train.agent_factory, cli_train.DataLoader
+    old_vocab = os.environ.get("LRCE_TPU_BERT_VOCAB")
+    steps = []          # (is_train, counts, host start s, start ev, end ev)
+    waits = []          # (host s after the wait, ms) per batch fetched
+    items = []          # (host start s, host end s, split size) per item
+
+    class TimedItems:
+        """The dataset, with the host span of each item fetched."""
+
+        def __init__(self, dataset):
+            self.dataset = dataset
+
+        def __len__(self):
+            return len(self.dataset)
+
+        def __getitem__(self, i):
+            t = time.perf_counter()
+            out = self.dataset[i]
+            items.append((t, time.perf_counter(), len(self.dataset)))
+            return out
+
+    class TimedLoader(real_loader):
+        def __init__(self, dataset, *a, **k):
+            super().__init__(TimedItems(dataset), *a, **k)
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                now = time.perf_counter()
+                waits.append((now, (now - t) * 1e3))
+                yield batch
+
+    def factory(task_type):
+        class Instrumented(real_factory(task_type)):
+            def __init__(self, model, *a, **k):
+                super().__init__(model, *a, **k)
+                self.probes = {
+                    "fusion_model": model.fusion_model.final_fc.weight,
+                    "text_extractor": model.text_extractor.bert.encoder
+                    .layer[0].intermediate.dense.weight,
+                    "video_extractor": model.video_extractor.swin.layers[0]
+                    .blocks[0].attn.qkv.weight}
+                self.before = {n: p.detach().clone()
+                               for n, p in self.probes.items()}
+
+            def dispatch(self, *batch, is_train):
+                host = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                _reset_counts()
+                start.record()
+                out = super().dispatch(*batch, is_train=is_train)
+                end.record()
+                steps.append((is_train, _counts(), host, start, end))
+                return out
+
+        return Instrumented
+
+    with tempfile.TemporaryDirectory(prefix="lrce_cli_") as root:
+        data = os.path.join(root, "tgif")
+        written = write_tgif_frameqa(data, seed=31)
+        os.environ["LRCE_TPU_BERT_VOCAB"] = written["vocab"]
+        try:
+            argv = ["--dataset", "tgif-frameqa", "--dataset-dir", data]
+            train_args = parse_arg_train(argv + [
+                "--log-dir", os.path.join(root, "runs"), "--epoch", "1",
+                "--async-checkpoint"])
+            batch = train_args.batch_size
+
+            # the data layer alone: native tokenizer, clips against the
+            # frames written
+            (dataset,) = cli_train.build_datasets(train_args, ("train",))
+            require(isinstance(dataset.tokenizer._native,
+                               native.NativeWordPiece),
+                    "the tokenizer did not take the native WordPiece")
+            sizes = {name: f.shape[1:] for name, (f, _) in
+                     written["gifs"].items()}
+            by_size = {}
+            for i, row in enumerate(dataset.label_file):
+                by_size.setdefault(sizes[row["gif_name"]] == (224, 224), i)
+            require(set(by_size) == {True, False},
+                    "the questions do not cover both GIF sizes")
+            i = by_size[True]
+            frames, palette = written["gifs"][dataset.label_file[i]["gif_name"]]
+            idx = clip_indices(len(frames), dataset.frames_per_clip,
+                               dataset.temporal_scale)
+            clips = dataset[i][0]
+            require(clips.dtype == np.uint8 and np.array_equal(
+                clips, palette[frames[idx]]),
+                "decoded clips differ from the frames written")
+            other = dataset[by_size[False]][0]
+            require(other.shape == (3, 5, 224, 224, 3)
+                    and other.dtype == np.uint8,
+                    f"the 320 x 240 GIF gave {other.shape} {other.dtype}")
+            host_ms = _cli_host_ms(dataset)
+            print(f"[cli] dataset: {len(written['gifs'])} GIFs, "
+                  f"{CLI_TRAIN_QUESTIONS} train / {CLI_TEST_QUESTIONS} test "
+                  f"questions; item {i}'s clips {clips.shape} equal the "
+                  f"frames written at clip_indices; host ms per item "
+                  f"{ {k: round(v, 3) for k, v in host_ms.items()} }",
+                  flush=True)
+            del dataset
+
+            cli_train.agent_factory = factory
+            cli_eval.agent_factory = factory
+            cli_train.DataLoader = TimedLoader
+            cli_eval.DataLoader = TimedLoader
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = cli_train.main(train_args)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            train_steps, train_waits = list(steps), list(waits)
+            train_items = sorted(it[:2] for it in items
+                                 if it[2] == CLI_TRAIN_QUESTIONS)
+            require(math.isfinite(trainer.last_train_loss)
+                    and math.isfinite(trainer.last_loss),
+                    f"non-finite loss: train {trainer.last_train_loss}, "
+                    f"validation {trainer.last_loss}")
+            for name, p in trainer.probes.items():
+                require(not torch.equal(trainer.before[name], p.detach()),
+                        f"the train CLI left {name}'s parameters unchanged")
+            files = sorted(os.listdir(trainer.args.ckpt_dir))
+            require("best.pt" in files, f"no best.pt in {files}")
+            require(os.path.isfile(os.path.join(trainer.args.log_dir,
+                                                "config.json")),
+                    "no config.json")
+            best = os.path.join(trainer.args.ckpt_dir, "best.pt")
+            train_loss = trainer.last_train_loss
+            del trainer
+            torch.cuda.empty_cache()
+
+            steps.clear()
+            t0 = time.perf_counter()
+            evaluator = cli_eval.main(parse_arg_eval(argv + [
+                "--model-path", best]))
+            torch.cuda.synchronize()
+            eval_wall = time.perf_counter() - t0
+            require(math.isfinite(evaluator.last_loss)
+                    and math.isfinite(evaluator.last_metric_val),
+                    f"eval CLI: loss {evaluator.last_loss}, metric "
+                    f"{evaluator.last_metric_val}")
+            eval_loss, eval_metric = (evaluator.last_loss,
+                                      evaluator.last_metric_val)
+            eval_steps = list(steps)
+            del evaluator
+            torch.cuda.empty_cache()
+        finally:
+            cli_train.agent_factory = cli_eval.agent_factory = real_factory
+            cli_train.DataLoader = cli_eval.DataLoader = real_loader
+            if old_vocab is None:
+                os.environ.pop("LRCE_TPU_BERT_VOCAB", None)
+            else:
+                os.environ["LRCE_TPU_BERT_VOCAB"] = old_vocab
+
+    n_train = -(-CLI_TRAIN_QUESTIONS // batch)
+    n_val = -(-CLI_TEST_QUESTIONS // batch)
+    require([st[0] for st in train_steps] == [True] * n_train + [False] * n_val,
+            f"the train CLI took {[st[0] for st in train_steps]} steps "
+            f"(train True), expected {n_train} train then {n_val} validation")
+    require(len(eval_steps) == n_val and not any(st[0] for st in eval_steps),
+            f"the eval CLI took {len(eval_steps)} steps, expected {n_val}")
+    totals = {k: 0 for k in train_step}
+    for is_train, counts, *_ in train_steps + eval_steps:
+        want = train_step if is_train else eval_step
+        for k, n in want.items():
+            require(counts[k] == n, f"{k} launched {counts[k]} times in a "
+                    f"{'train' if is_train else 'eval'} step of the CLI, "
+                    f"expected {n}")
+            if is_train:
+                totals[k] += counts[k]
+    for k in ("K1", "K3", "K2", "K6", "K5", "K4"):
+        require(totals[k] > 0, f"{k} never launched on the CLI's path")
+    step_ms = [st[3].elapsed_time(st[4]) for st in train_steps[:n_train]]
+    starts = [st[2] for st in train_steps[:n_train]]
+    # loader waits between one train step's dispatch and the next, as a
+    # share of that interval; the steps after the first CLI_LOOKAHEAD + 1
+    # read the loader's rate, not its lookahead
+    shares, intervals = [], []
+    for a, b in zip(starts, starts[1:]):
+        waited = sum(ms for at, ms in train_waits if a < at <= b)
+        shares.append(waited / ((b - a) * 1e3))
+        intervals.append((b - a) * 1e3)
+    first_wait = sum(ms for at, ms in train_waits if at <= starts[0])
+    steady = slice(CLI_LOOKAHEAD + 1, None)
+    require(len(shares[steady]) >= 10,
+            f"only {len(shares[steady])} steps after the loader's lookahead")
+    steady_share = (sum(s * t for s, t in zip(shares[steady],
+                                             intervals[steady]))
+                    / sum(intervals[steady]))
+    # the producer fetches one batch's items (in call order) before it
+    # starts the next: each batch's busy span, beside the step interval
+    require(len(train_items) == CLI_TRAIN_QUESTIONS,
+            f"{len(train_items)} train items fetched, expected "
+            f"{CLI_TRAIN_QUESTIONS}")
+    busy = [(max(e for _, e in chunk) - chunk[0][0]) * 1e3
+            for chunk in (train_items[j:j + batch]
+                          for j in range(0, len(train_items), batch))]
+    busy_ratio = (sum(busy[steady]) / len(busy[steady])
+                  / (sum(intervals[steady]) / len(intervals[steady])))
+    # the first step that starts after the producer's last item: the step
+    # intervals after the lookahead with the loader at work and after it
+    done = next((k for k, t in enumerate(starts)
+                 if t > max(e for _, e in train_items)), n_train)
+    loading = intervals[CLI_LOOKAHEAD + 1:max(done - 1, CLI_LOOKAHEAD + 1)]
+    idle = intervals[done:]
+    print(f"[cli] {card}; train CLI (tgif-frameqa, Swin-B + BERT-base, oe, "
+          f"batch {batch}, {n_train} steps + {n_val} validation steps, "
+          f"async checkpoints): {train_wall:.2f} s wall, train loss "
+          f"{train_loss:.5f}, step ms on the device "
+          f"{[round(t, 1) for t in step_ms]}, step intervals on the host ms "
+          f"{[round(t, 1) for t in intervals]}, loader-wait share per step "
+          f"{[round(x, 4) for x in shares]}, before steps "
+          f"{CLI_LOOKAHEAD + 3}-{n_train} {steady_share:.4f}, first batches "
+          f"{first_wait:.1f} ms; the loader's busy ms per batch "
+          f"{[round(t, 1) for t in busy]}, batches "
+          f"{CLI_LOOKAHEAD + 2}-{n_train} {busy_ratio:.4f} of a step "
+          f"interval; the producer's last item ended before step "
+          f"{done + 1}: mean step interval ms while it loads "
+          f"{sum(loading) / max(len(loading), 1):.1f}, after "
+          f"{sum(idle) / max(len(idle), 1):.1f}; "
+          f"peak device memory {peak:.2f} GiB, launches per train step "
+          f"{train_steps[0][1]}; eval CLI on best.pt: {eval_wall:.2f} s wall, "
+          f"loss {eval_loss:.5f}, accuracy {eval_metric:.4f}, launches per "
+          f"step {eval_steps[0][1]}; host ms per item "
+          f"{ {k: round(v, 3) for k, v in host_ms.items()} }", flush=True)
+    return {"launches": totals, "step_ms": step_ms, "wait_share": shares,
+            "steady_wait_share": steady_share, "busy_ratio": busy_ratio,
+            "host_ms": host_ms, "train_s": train_wall, "eval_s": eval_wall,
+            "peak": peak}
+
+
 SOURCES = {
     "K1": ("fused_swin_block", "lrce_tpu_torch/csrc/swin_block.cu",
            "lrce_tpu/ops/pallas_swin_block.py:180"),
@@ -1462,6 +1893,7 @@ def main() -> int:
     train_launches, step_ms, peak = phase_train()
     run_launches, run_step_ms, run_wall, run_peak = phase_training_run()
     worst = phase_route_parity()
+    cli = phase_cli(card)
     # the forward kernels from the serving requests, K8 from its own entry
     # point, the backward kernels from the training run; every kernel of
     # the run's path must have launched there
@@ -1489,7 +1921,12 @@ def main() -> int:
           f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "
           f"{TRAIN_CLIPS} clips, peak {peak:.2f} GiB; training run "
           f"{run_wall:.2f} s, step ms {run_step_ms}, peak {run_peak:.2f} GiB; "
-          f"route parity worst gradient rel L2 {worst:.4g}; per call "
+          f"route parity worst gradient rel L2 {worst:.4g}; CLIs: train "
+          f"{cli['train_s']:.2f} s, eval {cli['eval_s']:.2f} s, step ms "
+          f"{[round(t, 1) for t in cli['step_ms']]}, loader-wait share "
+          f"after the lookahead {cli['steady_wait_share']:.4f}, loader busy "
+          f"{cli['busy_ratio']:.4f} of a step, peak "
+          f"{cli['peak']:.2f} GiB; per call "
           f"(kernel ms, plain ms, calls, bound ms) "
           f"{[(k, l, round(a, 4), round(b, 4), c, round(d, 4)) for k, l, a, b, c, d in per_call]}"
           f"; total {time.perf_counter() - t_start:.1f} s")

@@ -169,3 +169,23 @@ def e2e_forward(model: LRCEModel, video_clips: torch.Tensor,
     """The serving entry: ``e2e_apply`` in eval mode, without autograd."""
     return e2e_apply(model, video_clips, texts, texts_attention_mask,
                      texts_type_ids)
+
+
+def config_from_args(args) -> E2EConfig:
+    """An ``E2EConfig`` from a parsed namespace of ``lrce_tpu_torch.config``
+    (``lrce_tpu.models.e2e.config_from_args`` without its two environment
+    hooks: the CLIs take a ``model_cfg`` for a small test model in place of
+    LRCE_TPU_TINY_MODEL, and the port has no Swin remat, LRCE_TPU_SWIN_REMAT:
+    K4 and K5 recompute the attention and the MLP hidden in the backward).
+    Swin-B and BERT-base at the dataset's widths."""
+    return E2EConfig(
+        feature_dim=args.feature_dim,
+        num_classes=args.num_classes,
+        drop_out_rate=getattr(args, "drop_out_rate", 0.1),
+        video_feature_res=tuple(args.video_feature_res),
+        video_feature_dim=args.video_feature_dim,
+        frame_sample_size=args.frame_sample_size,
+        temporal_scale=tuple(args.temporal_scale),
+        text_seq_len=args.text_seq_len,
+        task_type=args.task_type,
+    )

@@ -118,13 +118,21 @@ def test_port_never_imports_jax():
         import torch
         import lrce_tpu_torch
         from lrce_tpu_torch import constants
-        from lrce_tpu_torch import config, pretrained
-        from lrce_tpu_torch.data import loader, prefetch, sampling
+        from lrce_tpu_torch import config, native, pretrained
+        from lrce_tpu_torch.cli import eval as cli_eval
+        from lrce_tpu_torch.cli import train as cli_train
+        from lrce_tpu_torch.data import datasets, loader, prefetch, sampling
+        from lrce_tpu_torch.data import tokenizer, tsv, video_decode
         from lrce_tpu_torch.ops import cuda_lib, mlp, nn, swin_block, window_attn
         from lrce_tpu_torch.models import bert, e2e, embedding, fusion, swin3d
         from lrce_tpu_torch.train import agent, losses, optimizer, schedule
         from lrce_tpu_torch.utils import checkpoint, convert, device, logging
-        from lrce_tpu_torch.utils import pytree
+        from lrce_tpu_torch.utils import pytree, vocab
+        # the data layer and the CLIs need no image, table or HF library
+        # (the native decoders and read_tsv take their place)
+        loaded = [m for m in ("PIL", "cv2", "pandas", "transformers")
+                  if m in sys.modules]
+        assert not loaded, loaded
         cfg = e2e.E2EConfig(
             feature_dim=36, num_classes=5, video_feature_dim=64,
             text_seq_len=8,
