@@ -108,7 +108,26 @@ Phases, each raising on failure (the script then exits non-zero):
      split: a finite loss and accuracy, K1 11, K3 11, K2 2 a step. One
      ``[cli]`` line gives both walls, the train steps' device ms, the
      loader-wait share of each step, the peak device memory and the card;
-  9. a JSON line of kernels, then the last line
+  9. ddp: training across ranks. ``cli.train_ddp.main`` (the legacy
+     parser's temporal scale [1, 2, 3], batch 8 a rank: 4 train and 2
+     validation steps over a TGIF-frameqa directory of 32 / 16 questions
+     written as in 8) at one rank per card over NCCL, one card: a one-rank
+     NCCL group with DDP around the full-width model, K1-K6 counted on
+     every train step and K1 / K3 / K2 on every eval step; then
+     ``cli.eval.main`` on its ``best.pt``. Then two ranks sharing the card
+     over gloo (NCCL refuses two ranks on one card), the flagship with f32
+     parameters, bf16 compute, dropout and drop-path 0, 4 questions x 3
+     clips a rank: 2 DDP steps, both ranks' parameters bit-identical after
+     each; tensor parallelism (model 2) and FSDP (fsdp 2, its all-gathers
+     and reduce-scatters over gloo too) one step each; each step against
+     one process on the concatenated 8 questions (loss 1e-2, per-group
+     gradient 1e-1 relative, per-group update 1e-1 relative where every
+     step's gradient so far is above 0.1 of its group's RMS); every rank's
+     step launches what the one-card step does. One ``[ddp]``
+     line: the CLI's walls, step ms and peak, each two-rank run's step ms
+     and peak a rank, the gradient all-reduce's share over gloo (through
+     the host: no NCCL figure);
+ 10. a JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
@@ -123,6 +142,7 @@ fused functions.
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import json
 import math
@@ -1520,11 +1540,13 @@ def write_gif(path: str, frames: np.ndarray, palette: np.ndarray) -> None:
         f.write(bytes(out))
 
 
-def write_tgif_frameqa(root: str, seed: int) -> dict:
+def write_tgif_frameqa(root: str, seed: int,
+                       train_questions: int = CLI_TRAIN_QUESTIONS,
+                       test_questions: int = CLI_TEST_QUESTIONS) -> dict:
     """A TGIF-frameqa dataset directory under ``root``, made from ``seed``:
     ``gifs/`` (CLI_GIFS, CLI_FRAMES frames each), ``annotations/
-    {Train,Test,Total}_frameqa_question.csv`` (CLI_TRAIN_QUESTIONS and
-    CLI_TEST_QUESTIONS questions over the GIFs, Total = both) and a
+    {Train,Test,Total}_frameqa_question.csv`` (train_questions and
+    test_questions questions over the GIFs, Total = both) and a
     ``vocab.txt`` of the words used. Returns {gif name: (frames, palette)}
     and the vocab's path."""
     rng = np.random.default_rng(seed)
@@ -1551,7 +1573,7 @@ def write_tgif_frameqa(root: str, seed: int) -> dict:
         return out
 
     header = "gif_name\tquestion\tanswer\tvid_id"
-    train, test = rows(CLI_TRAIN_QUESTIONS), rows(CLI_TEST_QUESTIONS)
+    train, test = rows(train_questions), rows(test_questions)
     for split, body in (("Train", train), ("Test", test),
                         ("Total", train + test)):
         with open(os.path.join(root, "annotations",
@@ -1858,6 +1880,398 @@ def phase_cli(card: str):
             "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# Across ranks: the train_ddp CLI over NCCL, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the train_ddp CLI's run: the legacy parser's temporal scale [1, 2, 3] (6
+# clips a question), 8 questions a step (48 clips), 4 train and 2
+# validation steps
+DDP_CLI_BATCH = 8
+DDP_CLI_QUESTIONS = (32, 16)
+# two ranks on the card: 4 questions x 3 clips each, 2 steps, against one
+# process on the 8 questions
+DDP_QUESTIONS = 4
+DDP_STEPS = 2
+DDP_GROUPS = ("fusion_model", "text_extractor", "video_extractor")
+# route parity's limits: the step's loss, each group's gradient and each
+# group's update. AdamW's first update is lr sign(g) for most elements, so
+# bf16 noise in a gradient near 0 flips its sign; the update is held where
+# every step's one-process gradient so far is above DDP_DECIDED of its
+# group's RMS, and the rest of it is the gradient's to hold
+DDP_LOSS_REL = TRAIN_LOSS_REL
+DDP_GRAD_REL = TRAIN_GRAD_REL_L2
+DDP_UPDATE_REL = 1e-1
+DDP_DECIDED = 0.1
+# a collective that waits longer than this fails its rank (and the run)
+DDP_TIMEOUT = datetime.timedelta(seconds=180)
+
+
+def _ddp_cfg():
+    """The flagship with dropout and drop-path 0 (the ranks draw their own
+    masks; parity with one process needs none)."""
+    from lrce_tpu_torch.models import bert as PB
+    from lrce_tpu_torch.models import swin3d as PSw
+    from lrce_tpu_torch.models.e2e import E2EConfig
+
+    return E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32,
+                     drop_out_rate=0.0,
+                     bert=PB.BERT_BASE._replace(hidden_dropout=0.0,
+                                                attention_dropout=0.0),
+                     swin=PSw.SWIN_BASE._replace(drop_path_rate=0.0))
+
+
+def _ddp_batches(questions: int):
+    """DDP_STEPS global batches of 2 x ``questions`` questions."""
+    rng = np.random.default_rng(43)
+    return [_train_batch(rng, 2 * questions) for _ in range(DDP_STEPS)]
+
+
+def _group_flats(state: dict) -> dict:
+    """{group: the group's tensors of ``state`` flattened in f32, in the
+    state dict's order}."""
+    return {g: torch.cat([t.detach().float().reshape(-1)
+                          for k, t in state.items() if k.startswith(g + ".")])
+            for g in DDP_GROUPS}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _decided(grads: list) -> torch.Tensor:
+    """Where every gradient of ``grads`` (one group's, step by step) is
+    above DDP_DECIDED of its RMS: there AdamW's update does not hang on the
+    sign of bf16 noise."""
+    mask = None
+    for g in grads:
+        g = g.float()
+        m = g.abs() > DDP_DECIDED * g.square().mean().sqrt()
+        mask = m if mask is None else mask & m
+    return mask
+
+
+def _ddp_rank(device, ref_path: str, questions: int) -> list:
+    """Both ranks of the checks, mode by mode, each on a fresh flagship
+    from the seed: "ddp" (data 2, DDP_STEPS steps), "model"
+    (tensor-parallel 2) and "fsdp" (fsdp 2), one step each for the last
+    two. Per step: the global loss and count, launches, host ms, the
+    per-group gradient and update (where ``_decided``) against the
+    one-process reference in ``ref_path``, and (ddp) whether rank 0's
+    parameters equal this rank's bit for bit."""
+    import torch.distributed as dist
+
+    from lrce_tpu_torch.models.e2e import LRCEModel
+    from lrce_tpu_torch.parallel import mesh as PM
+    from lrce_tpu_torch.parallel import sharding as PS
+    from lrce_tpu_torch.train.agent import AgentOE, default_args
+
+    ref = torch.load(ref_path, weights_only=True)
+    runs = {}
+    for mode in ("ddp", "model", "fsdp"):
+        fsdp, model_axis = {"ddp": (1, 1), "fsdp": (2, 1),
+                            "model": (1, 2)}[mode]
+        t0 = time.perf_counter()
+        layout = PM.make_layout(fsdp, model_axis, "cuda")
+        model = LRCEModel(_ddp_cfg(), dtype=torch.float32,
+                          compute_dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+        before = _group_flats(model.state_dict())
+        agent = AgentOE(model, default_args(), log_enabled=False,
+                        layout=layout)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i, batch in enumerate(_ddp_batches(questions)[
+                :DDP_STEPS if mode == "ddp" else 1]):
+            # a tensor-parallel pair takes the whole batch, batch ranks
+            # their half each
+            part = [np.split(b, layout.n_batch)[layout.batch_rank]
+                    for b in batch]
+            torch.cuda.synchronize()
+            dist.barrier()
+            _reset_counts()
+            t = time.perf_counter()
+            loss, _, total = agent.step(*part, is_train=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts = _counts()
+            grads = _group_flats(PS.full_grads(model, layout))
+            state = (PS.full_state_dict(model, layout) if agent.sharded
+                     else model.state_dict())
+            after = _group_flats(state)
+            del state
+            same = None
+            if mode == "ddp":
+                # rank 0's parameters against this rank's, bit for bit
+                same = True
+                for g in DDP_GROUPS:
+                    other = after[g].clone()
+                    dist.broadcast(other, 0)
+                    same = same and torch.equal(other, after[g])
+                    del other
+            update_rel, decided = {}, {}
+            for g in DDP_GROUPS:
+                mask = _decided([ref["grads"][j][g].cuda()
+                                 for j in range(i + 1)])
+                update_rel[g] = _rel((after[g] - before[g])[mask],
+                                     ref["updates"][i][g].cuda()[mask])
+                decided[g] = float(mask.float().mean())
+                del mask
+            steps.append({
+                "loss": loss, "total": total, "ms": ms, "counts": counts,
+                "grad_rel": {g: _rel(grads[g], ref["grads"][i][g].cuda())
+                             for g in DDP_GROUPS},
+                "update_rel": update_rel, "decided": decided, "same": same})
+            before = after
+            del grads
+        comm_ms = None
+        if mode == "ddp":
+            # the gradient's bytes all-reduced alone over gloo (through
+            # the host), beside the step: no NCCL figure
+            flat = torch.zeros(sum(p.numel() for p in model.parameters()),
+                               device=device)
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            comm_ms = (time.perf_counter() - t) * 1e3
+            del flat
+        runs[mode] = {"steps": steps, "comm_ms": comm_ms,
+                      "peak": torch.cuda.max_memory_allocated() / 2**30,
+                      "wall_s": time.perf_counter() - t0}
+        del agent, model, before, after
+        torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"rank": dist.get_rank(), "runs": runs})
+    return every
+
+
+def phase_ddp(card: str):
+    """Training across ranks on the card, through the entry points a user
+    calls: ``cli.train_ddp.main`` over NCCL at world size
+    ``torch.cuda.device_count()`` (one card: a one-rank NCCL group, DDP
+    around the full-width model) and ``cli.eval.main`` on its ``best.pt``,
+    the launches of every step counted (in this process: one card); then
+    ``phase_ddp_ranks``."""
+    from lrce_tpu_torch.cli import eval as cli_eval
+    from lrce_tpu_torch.cli import train as cli_train
+    from lrce_tpu_torch.cli import train_ddp as cli_train_ddp
+    from lrce_tpu_torch.config import parse_arg_eval
+    from lrce_tpu_torch.parallel import mesh as PM
+
+    train_step = {"K7": 0, "K8": 0,
+                  **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
+                                            **CALLS_PER_BACKWARD}.items()}}
+    eval_step = {"K6": 0, "K5": 0, "K4": 0, "K7": 0, "K8": 0,
+                 **{k: sum(v) for k, v in CALLS_PER_FORWARD.items()}}
+    world = torch.cuda.device_count()
+    steps = []
+    real_factory = cli_train.agent_factory
+
+    def factory(task_type):
+        class Counted(real_factory(task_type)):
+            def dispatch(self, *batch, is_train):
+                torch.cuda.synchronize()
+                _reset_counts()
+                t = time.perf_counter()
+                out = super().dispatch(*batch, is_train=is_train)
+                torch.cuda.synchronize()
+                steps.append((is_train, _counts(),
+                              (time.perf_counter() - t) * 1e3))
+                return out
+
+        return Counted
+
+    old_vocab = os.environ.get("LRCE_TPU_BERT_VOCAB")
+    with tempfile.TemporaryDirectory(prefix="lrce_ddp_") as root:
+        data = os.path.join(root, "tgif")
+        written = write_tgif_frameqa(data, 41, *DDP_CLI_QUESTIONS)
+        os.environ["LRCE_TPU_BERT_VOCAB"] = written["vocab"]
+        try:
+            argv = ["--dataset", "tgif-frameqa", "--dataset-dir", data,
+                    "--batch-size", str(DDP_CLI_BATCH)]
+            args = cli_train_ddp.parse_arg_train(argv + [
+                "--log-dir", os.path.join(root, "runs"), "--epoch", "1"])
+            require(args.temporal_scale == [1, 2, 3],
+                    f"train_ddp's temporal scale {args.temporal_scale}")
+            if world == 1:
+                cli_train.agent_factory = factory
+                cli_eval.agent_factory = factory
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = cli_train_ddp.main(args, world_size=world)
+            train_wall = time.perf_counter() - t0
+            cli_peak = torch.cuda.max_memory_allocated() / 2**30
+            require(not PM.dist.is_initialized(),
+                    "the CLI left its process group joined")
+            ckpt_dir = (out.args if world == 1 else out).ckpt_dir
+            require(math.isfinite(out.last_train_loss)
+                    and math.isfinite(out.last_loss),
+                    f"train_ddp: train loss {out.last_train_loss}, "
+                    f"validation loss {out.last_loss}")
+            files = sorted(os.listdir(ckpt_dir))
+            require(files.count("best.pt") == 1, f"checkpoints {files}")
+            train_steps = list(steps)
+            steps.clear()
+            del out
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ev = cli_eval.main(parse_arg_eval(argv + [
+                "--model-path", os.path.join(ckpt_dir, "best.pt"),
+                "--temporal-scale", "1", "2", "3"]), world_size=world)
+            eval_wall = time.perf_counter() - t0
+            require(math.isfinite(ev.last_loss)
+                    and math.isfinite(ev.last_metric_val),
+                    f"eval CLI: loss {ev.last_loss}, metric "
+                    f"{ev.last_metric_val}")
+            eval_steps = list(steps)
+            del ev
+        finally:
+            cli_train.agent_factory = cli_eval.agent_factory = real_factory
+            if old_vocab is None:
+                os.environ.pop("LRCE_TPU_BERT_VOCAB", None)
+            else:
+                os.environ["LRCE_TPU_BERT_VOCAB"] = old_vocab
+    torch.cuda.empty_cache()
+    n_train = -(-DDP_CLI_QUESTIONS[0] // DDP_CLI_BATCH)
+    n_val = -(-DDP_CLI_QUESTIONS[1] // DDP_CLI_BATCH)
+    if world == 1:
+        require([s[0] for s in train_steps]
+                == [True] * n_train + [False] * n_val,
+                f"train_ddp took {[s[0] for s in train_steps]} steps")
+        require(len(eval_steps) == n_val, f"eval took {len(eval_steps)} "
+                f"steps, expected {n_val}")
+        for is_train, counts, _ in train_steps + eval_steps:
+            want = train_step if is_train else eval_step
+            for k, n in want.items():
+                require(counts[k] == n, f"{k} launched {counts[k]} times in "
+                        f"a {'train' if is_train else 'eval'} step of the "
+                        f"NCCL run, expected {n}")
+    cli_ms = [round(st[2], 1) for st in train_steps if st[0]]
+    print(f"[ddp-cli] train_ddp over NCCL, {world} rank(s) (tgif-frameqa, "
+          f"Swin-B + BERT-base, temporal scale [1, 2, 3], batch "
+          f"{DDP_CLI_BATCH} a rank, {n_train} steps + {n_val} validation "
+          f"steps): {train_wall:.2f} s wall, step ms (host, synchronized) "
+          f"and peak "
+          f"{f'{cli_ms}, {cli_peak:.2f} GiB' if world == 1 else 'not read across processes'}"
+          f"; eval CLI {eval_wall:.2f} s wall", flush=True)
+
+    return {"cli_train_s": train_wall, "cli_eval_s": eval_wall,
+            "cli_step_ms": cli_ms, "cli_peak": cli_peak}
+
+
+def phase_ddp_ranks(card: str, questions: int = DDP_QUESTIONS,
+                    nccl: bool = False) -> dict:
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    card), or with ``nccl`` two cards over NCCL, ``questions`` questions x
+    3 clips a rank: DDP_STEPS flagship steps from the same weights with
+    bit-identical parameters on both ranks after each, against one process
+    on the concatenated batch; then tensor parallelism (model 2) and FSDP
+    (fsdp 2) one step each, against the same one-process step. Every step
+    of every rank launches what the one-card step does."""
+    from lrce_tpu_torch.models.e2e import LRCEModel
+    from lrce_tpu_torch.parallel import mesh as PM
+    from lrce_tpu_torch.train.agent import AgentOE, default_args
+
+    train_step = {"K7": 0, "K8": 0,
+                  **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
+                                            **CALLS_PER_BACKWARD}.items()}}
+    # the one-process reference first
+    model = LRCEModel(_ddp_cfg(), dtype=torch.float32,
+                      compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    agent = AgentOE(model, default_args(), log_enabled=False)
+    before = _group_flats(model.state_dict())
+    ref = {"losses": [], "grads": [], "updates": []}
+    for batch in _ddp_batches(questions):
+        ref["losses"].append(agent.step(*batch, is_train=True)[0])
+        after = _group_flats(model.state_dict())
+        grads = _group_flats({n: p.grad if p.grad is not None
+                              else torch.zeros_like(p)
+                              for n, p in model.named_parameters()})
+        # bf16 holds a gradient or an update to 2^-8 relative, far inside
+        # the limits
+        ref["grads"].append({g: grads[g].bfloat16().cpu()
+                             for g in DDP_GROUPS})
+        ref["updates"].append({g: (after[g] - before[g]).bfloat16().cpu()
+                               for g in DDP_GROUPS})
+        before = after
+    del agent, model, before, after, grads
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lrce_ddp_ref_") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, ref_path)
+        del ref["grads"], ref["updates"]
+        t0 = time.perf_counter()
+        every = PM.spawn(_ddp_rank, 2, (ref_path, questions),
+                         device="cuda" if nccl else "cuda:0",
+                         backend=None if nccl else "gloo",
+                         timeout=DDP_TIMEOUT)
+        spawn_wall = time.perf_counter() - t0
+    report = {}
+    for mode in every[0]["runs"]:
+        runs = [r["runs"][mode] for r in every]
+        report[mode] = {
+            "wall_s": round(runs[0]["wall_s"], 2),
+            "step_ms": [[round(st["ms"], 1) for st in run["steps"]]
+                        for run in runs],
+            "loss": [round(st["loss"], 5) for st in runs[0]["steps"]],
+            "grad_rel": [{g: round(v, 5) for g, v in st["grad_rel"].items()}
+                         for st in runs[0]["steps"]],
+            "update_rel": [{g: round(v, 5) for g, v in
+                            st["update_rel"].items()}
+                           for st in runs[0]["steps"]],
+            "decided": [{g: round(v, 4) for g, v in st["decided"].items()}
+                        for st in runs[0]["steps"]],
+            "peak_gib": [round(run["peak"], 2) for run in runs]}
+        if mode == "ddp":
+            comm = runs[0]["comm_ms"]
+            report[mode]["all_reduce_ms"] = round(comm, 1)
+            report[mode]["all_reduce_share"] = round(
+                comm / runs[0]["steps"][-1]["ms"], 4)
+    where = ("two cards over NCCL" if nccl else
+             "two ranks sharing the card over gloo; the all-reduce goes "
+             "through the host (no NCCL figure)")
+    print(f"[ddp-ranks] {card}; {where} (flagship, "
+          f"f32 parameters, bf16 compute, dropout 0, {questions} "
+          f"questions x 3 clips a rank or, tensor-parallel, the pair's "
+          f"{2 * questions}), "
+          f"{spawn_wall:.1f} s for the spawn; one process's losses "
+          f"{[round(x, 5) for x in ref['losses']]}; the update is compared "
+          f"where the gradient is decided (the share in 'decided'); the "
+          f"all-reduce's share "
+          f"is the gradient's all-reduce alone over the second step, an "
+          f"upper bound since DDP overlaps it with the backward: "
+          f"{json.dumps(report)}", flush=True)
+    require(set(every[0]["runs"]) == {"ddp", "model", "fsdp"},
+            f"ran {sorted(every[0]['runs'])}")
+    for mode in every[0]["runs"]:
+        for r in every:
+            for i, st in enumerate(r["runs"][mode]["steps"]):
+                where = f"{mode} rank {r['rank']} step {i}"
+                require(math.isfinite(st["loss"]) and abs(
+                    st["loss"] - ref["losses"][i]) <= DDP_LOSS_REL * abs(
+                    ref["losses"][i]), f"{where}: loss {st['loss']} against "
+                    f"one process's {ref['losses'][i]}")
+                require(st["total"] == 2 * questions,
+                        f"{where}: the global batch counted {st['total']}")
+                for g, rel in st["grad_rel"].items():
+                    require(rel <= DDP_GRAD_REL, f"{where}: {g}'s gradient "
+                            f"off by {rel:.4g} relative")
+                for g, rel in st["update_rel"].items():
+                    require(rel <= DDP_UPDATE_REL, f"{where}: {g}'s "
+                            f"update off by {rel:.4g} relative where the "
+                            f"gradient is decided")
+                if mode == "ddp":
+                    require(st["same"], f"{where}: the ranks' parameters "
+                            "differ")
+                for k, n in train_step.items():
+                    require(st["counts"][k] == n, f"{where}: {k} launched "
+                            f"{st['counts'][k]} times, expected {n}")
+    return {"runs": report, "spawn_s": spawn_wall}
+
+
 SOURCES = {
     "K1": ("fused_swin_block", "lrce_tpu_torch/csrc/swin_block.cu",
            "lrce_tpu/ops/pallas_swin_block.py:180"),
@@ -1894,6 +2308,27 @@ def main() -> int:
     run_launches, run_step_ms, run_wall, run_peak = phase_training_run()
     worst = phase_route_parity()
     cli = phase_cli(card)
+    ddp = phase_ddp(card)
+    ranks = phase_ddp_ranks(card)
+    two_cards = (phase_ddp_ranks(card, nccl=True)
+                 if torch.cuda.device_count() >= 2 else None)
+    print("[ddp] " + card + "; " + json.dumps({
+        "train_ddp_nccl": {"ranks": torch.cuda.device_count(),
+                           "train_wall_s": round(ddp["cli_train_s"], 2),
+                           "eval_wall_s": round(ddp["cli_eval_s"], 2),
+                           "step_ms_host": ddp["cli_step_ms"] or None,
+                           "peak_gib": (round(ddp["cli_peak"], 2)
+                                        if ddp["cli_step_ms"] else None)},
+        "gloo_one_card": {m: {k: r[k] for k in ("step_ms", "peak_gib")
+                              if k in r} for m, r in ranks["runs"].items()},
+        "all_reduce_share_gloo_host": ranks["runs"]["ddp"][
+            "all_reduce_share"],
+        "all_reduce_ms_gloo_host": ranks["runs"]["ddp"]["all_reduce_ms"],
+        "nccl_two_cards": ({m: {k: r[k] for k in ("step_ms", "peak_gib",
+                                                  "all_reduce_ms") if k in r}
+                            for m, r in two_cards["runs"].items()}
+                           if two_cards else "not run: one card")}),
+          flush=True)
     # the forward kernels from the serving requests, K8 from its own entry
     # point, the backward kernels from the training run; every kernel of
     # the run's path must have launched there

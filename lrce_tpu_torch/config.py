@@ -6,8 +6,8 @@ argparse flags for training hyper-parameters are merged with a per-dataset
 JSON model config (``lrce_tpu_torch/configs``), with the conditional key
 pruning and the 1 -> 3 learning-rate broadcast. ``parse_arg_train`` /
 ``parse_arg_eval`` accept an optional argv for testability. The help texts
-of ``--fsdp`` and ``--tensor-parallel`` describe flags whose runtime
-(``parallel/``) is ported in a later slice.
+of ``--fsdp`` and ``--tensor-parallel`` are lrce_tpu's; their runtime is
+``parallel/``.
 """
 
 from __future__ import annotations
@@ -148,8 +148,13 @@ def parse_arg_train(argv: Optional[Sequence[str]] = None,
     conditional key deletion by scheduler/loss choice, JSON config merge,
     lr broadcast to 3 param groups, temporal-scale fallback.
     """
-    result = _build_train_parser().parse_args(argv)
+    return postprocess_train(_build_train_parser().parse_args(argv),
+                             config_dir)
 
+
+def postprocess_train(result: argparse.Namespace,
+                      config_dir: Optional[str] = None) -> argparse.Namespace:
+    """``parse_arg_train``'s post-processing of a parsed namespace."""
     if result.use_cosine_scheduler:
         del vars(result)["patience"]
     else:

@@ -10,7 +10,9 @@ the same batches in the same order for the same seeds:
     permutation unless an epoch is passed here);
   - ``DataLoader`` assembles global batches: the i-th global batch is the
     concatenation of every emulated rank's i-th per-rank batch, which is
-    what a data-parallel world consumes per optimizer step;
+    what a data-parallel world consumes per optimizer step; given a
+    ``rank``, it yields only that rank's slice of each global batch (one
+    process per card);
   - items are fetched by a thread pool and whole batches are prefetched in
     the background, so decoding overlaps the device's compute.
 """
@@ -21,7 +23,7 @@ import math
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,16 +93,25 @@ class _ProducerError:
 class DataLoader:
     """Iterable over prefetched global batches of numpy arrays.
 
+    With ``rank`` (0 <= rank < num_replicas) each batch is that rank's
+    part of the global batch: its ``batch_size`` items of
+    ``global_batch_indices``' batch, in rank order, so the ranks' batches
+    concatenated are the global batch. Without it, whole global batches.
+
     Unlike ``lrce_tpu``'s loader, whose consumer waits for ever when a
     dataset item raises, an exception in the producer is raised here from
     the iteration."""
 
     def __init__(self, dataset, batch_size: int, num_replicas: int = 1,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 4,
-                 prefetch: int = 2, collate=default_collate):
+                 prefetch: int = 2, collate=default_collate,
+                 rank: Optional[int] = None):
+        if rank is not None and not 0 <= rank < num_replicas:
+            raise ValueError(f"rank {rank} outside 0..{num_replicas - 1}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_replicas = num_replicas
+        self.rank = rank
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
@@ -121,6 +132,10 @@ class DataLoader:
         batches = global_batch_indices(len(self.dataset), self.batch_size,
                                        self.num_replicas, self.shuffle,
                                        self.seed, self.epoch)
+        if self.rank is not None:
+            # every rank's part of a global batch has the same length
+            batches = [np.split(b, self.num_replicas)[self.rank]
+                       for b in batches]
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

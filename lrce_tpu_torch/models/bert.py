@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from lrce_tpu_torch.ops.nn import LayerNorm, Linear, dropout, gelu
+from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp
 
 LN_EPS = 1e-12
 
@@ -75,11 +76,17 @@ class BertSelfAttention(nn.Module):
         self.query = _linear(d, d, dtype, generator)
         self.key = _linear(d, d, dtype, generator)
         self.value = _linear(d, d, dtype, generator)
+        self.tp_group = None    # tensor parallelism: this rank's heads only
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 training: bool = False, generator=None) -> torch.Tensor:
-        b, s, d = x.shape
+        """(B, S, D) -> (B, S, num_heads * head_dim): all heads on one card,
+        this rank's heads under tensor parallelism (the output projection
+        after it sums over the group)."""
+        b, s, _ = x.shape
+        d = self.query.weight.shape[0]
         hd = d // self.num_heads
+        x = copy_to_tp(x, self.tp_group)
 
         def heads(t):
             return t.reshape(b, s, self.num_heads, hd).transpose(1, 2)
@@ -134,11 +141,12 @@ class BertLayer(nn.Module):
         self.attention = BertAttention(cfg, dtype, generator)
         self.intermediate = BertIntermediate(cfg, dtype, generator)
         self.output = BertOutput(cfg, dtype, generator)
+        self.tp_group = None    # tensor parallelism: this rank's hidden
 
     def forward(self, x, bias, rate: float = 0.0, training: bool = False,
                 generator=None):
         x = self.attention(x, bias, rate, training, generator)
-        h = gelu(self.intermediate.dense(x))
+        h = gelu(self.intermediate.dense(copy_to_tp(x, self.tp_group)))
         h = dropout(self.output.dense(h), rate, training, generator)
         return self.output.LayerNorm(x + h)
 

@@ -97,6 +97,15 @@ class LRCEModel(nn.Module):
                                               ln_mlp)
         self.to(device)
 
+    def forward(self, video_clips, texts, texts_attention_mask,
+                texts_type_ids, *, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``e2e_apply`` (a module call, so that a DDP wrapper sees the
+        forward)."""
+        return e2e_apply(self, video_clips, texts, texts_attention_mask,
+                         texts_type_ids, training=training,
+                         generator=generator)
+
 
 def extract_video_features(model: LRCEModel, video_clips: torch.Tensor,
                            training: bool = False,

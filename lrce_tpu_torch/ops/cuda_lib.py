@@ -141,6 +141,26 @@ def library() -> Library:
     return Library(lib, path, seconds, log)
 
 
+def stream(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s card, for a launch.
+
+    The entry points launch on the calling thread's current device (the
+    CUDA runtime's), while the stream, the SM count and the tensor maps
+    follow ``t``'s card; so ``t`` must lie on the current device, which
+    ``parallel/mesh.init_distributed`` makes each rank's card before
+    anything touches it (and autograd's backward thread makes the card of
+    the tensors it works on). Anything else raises here instead of
+    launching on the wrong card."""
+    import torch
+
+    if t.device.index != torch.cuda.current_device():
+        raise RuntimeError(
+            f"a kernel's operand lies on {t.device} but the current device "
+            f"is cuda:{torch.cuda.current_device()}: call "
+            "torch.cuda.set_device first (one process per card)")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def check(name: str, code: int) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if code != 0:

@@ -111,7 +111,7 @@ def gemm_bf16(a: torch.Tensor, b: torch.Tensor, mode: int = EPI_BIAS,
     rc = cuda_lib.library().lib.lrce_gemm(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, mode, int(b_kn),
         ptr(bias), ptr(dp), dp_rows, ptr(res),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        cuda_lib.stream(a))
     cuda_lib.check(name, rc)
     gemm_bf16.launches += 1
     return out
@@ -152,7 +152,7 @@ def gemm_tn(g: torch.Tensor, a: torch.Tensor,
     ws = torch.empty((splits, n * k), dtype=torch.float32, device=g.device)
     rc = cuda_lib.library().lib.lrce_gemm_tn(
         g.data_ptr(), a.data_ptr(), out.data_ptr(), m, n, k, splits,
-        ws.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
+        ws.data_ptr(), cuda_lib.stream(g))
     cuda_lib.check(name, rc)
     gemm_tn.launches += 1
     return out
@@ -191,7 +191,7 @@ def ln_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     rc = cuda_lib.library().lib.lrce_ln_rows(
         x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift, eps,
         gamma.data_ptr(), beta.data_ptr(), int(gather),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_lib.stream(x))
     cuda_lib.check(name, rc)
     ln_rows.launches += 1
     return out

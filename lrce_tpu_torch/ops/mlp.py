@@ -70,7 +70,7 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps):
         x.data_ptr(), out.data_ptr(), x.numel() // c, c, ln_eps,
         ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_lib.stream(x))
     cuda_lib.check(name, rc)
     fused_mlp.launches += 1
     return out

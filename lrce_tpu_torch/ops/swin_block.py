@@ -183,7 +183,7 @@ def swin_back_half(ctx, x, proj_w, proj_b, ln2s, ln2b, w1, b1, w2, b2,
         ctx.data_ptr(), x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window,
         *shift, ln_eps, *(ptr(t) for t in (proj_w, proj_b, ln2s, ln2b, w1,
                                              b1, w2, b2, dp1, dp2)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_lib.stream(x))
     cuda_lib.check(name, rc)
     swin_back_half.launches += 1
     return out
@@ -289,7 +289,7 @@ def _mlp_bwd_kernel(h1, g, ln2s, ln2b, w1, b1, w2, dp2, ln_eps):
         None if dp2 is None else dp2.data_ptr(), dz.data_ptr(),
         dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), g2.data_ptr(),
         *(t_.data_ptr() for t_ in ws), col_rows, splits,
-        torch.cuda.current_stream(dev).cuda_stream)
+        cuda_lib.stream(h1))
     cuda_lib.check(name, rc)
     mlp_bwd.launches += 1
     db2 = g2.float().sum(0)          # sum g, outside the kernel as in JAX
@@ -446,7 +446,7 @@ def ln_mlp_forward(counted, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         None if dp2 is None else dp2.data_ptr(), ws_z.data_ptr(),
         ws_hid.data_ptr(), None if ws_part is None else ws_part.data_ptr(),
-        counters.data_ptr(), torch.cuda.current_stream(h1.device).cuda_stream)
+        counters.data_ptr(), cuda_lib.stream(h1))
     cuda_lib.check(name, rc)
     counted.launches += 1
     return out
@@ -556,7 +556,7 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
             off, ln2s, ln2b, w1, b1, w2, b2, dp1, dp2)),
         attn_fwd_groups(t // n, num_heads, sm_count(x)), int(one_launch),
         *(ptr(t) for t in ws),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_lib.stream(x))
     cuda_lib.check(name, rc)
     counted.launches += 1
     if one_launch:

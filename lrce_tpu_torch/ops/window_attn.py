@@ -262,7 +262,7 @@ def check_attention_shapes(name, x, window, num_heads, qkv_w, qkv_b, proj_w,
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return cuda_lib.stream(x)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -21,8 +21,9 @@ What ports:
     ``ckpt_steps``), ``do_sanity_check``, ``do_evaluation``; batches reach
     the step through ``data/prefetch.device_prefetch``;
   - the log directory ``<log_dir>/<uid>_<dataset>`` with ``config.json``,
-    TensorBoard scalars when ``torch.utils.tensorboard`` is importable, and
-    ``weights/`` for the checkpoints;
+    TensorBoard scalars when ``torch.utils.tensorboard`` is importable
+    (and ``args.tensorboard``, where set, is true), and ``weights/`` for
+    the checkpoints;
   - checkpoints, blocking or from a writer thread (``async_checkpoint``):
     the loop then pays one device-side copy of the state, and the copy to
     the host, the serialisation and the write overlap later steps. One
@@ -31,6 +32,17 @@ What ports:
 
 The agent runs where its model lives; ``LRCEModel`` is built on the card
 unless its caller asks for the CPU.
+
+Across ranks (``layout``, ``parallel/mesh.Layout``; one process per card)
+the agent wraps its model as ``parallel/sharding.shard_model`` says: DDP
+over the batch ranks, or tensor parallelism and FSDP. Every rank draws its
+dropout and drop-path from its own generator (the seed with the batch rank
+folded in); each step returns the global (loss, metric_num, metric_den) of
+the global batch (the loss averaged, the counts summed over the batch
+ranks), so the schedulers, the best checkpoint and the reports decide
+alike on every rank. Logs, TensorBoard, ``config.json`` and checkpoint
+files are written by rank 0; every rank joins the gather of a sharded
+state on the main thread, and the writer thread only serialises.
 """
 
 from __future__ import annotations
@@ -48,7 +60,9 @@ import torch
 
 from lrce_tpu_torch.config import parse_arg_train
 from lrce_tpu_torch.data.prefetch import device_prefetch
-from lrce_tpu_torch.models.e2e import LRCEModel, e2e_apply
+from lrce_tpu_torch.models.e2e import LRCEModel
+from lrce_tpu_torch.parallel import mesh as PM
+from lrce_tpu_torch.parallel import sharding as PS
 from lrce_tpu_torch.train import losses as L
 from lrce_tpu_torch.train import optimizer as O
 from lrce_tpu_torch.train.schedule import CosineWarmupRestarts, ReduceLROnPlateau
@@ -101,26 +115,44 @@ class _StateSnapshot:
         return C.map_tensors(self.tree, lambda _: next(it))
 
 
+def fold_seed(seed: int, rank: int) -> int:
+    """A generator seed for a batch rank: the seed itself for rank 0."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % 2**63
+
+
 class AgentBase:
     metric_name = "Accuracy"
     metric_lower_better = False
 
     def __init__(self, model: LRCEModel, args, *, log_enabled: bool = True,
-                 is_eval: bool = False, seed: int = 0):
-        """model: an ``LRCEModel`` on its device; args: the namespace of
-        ``lrce_tpu_torch.config`` (lr, reg_strength, use_cosine_scheduler,
-        log_dir, dataset, ...); log_enabled: make the log directory, write
-        ``config.json``, TensorBoard scalars and checkpoints; seed: the
-        dropout / drop-path generator's seed."""
+                 is_eval: bool = False, seed: int = 0,
+                 layout: Optional[PM.Layout] = None):
+        """model: an ``LRCEModel`` on its device (the same weights on every
+        rank); args: the namespace of ``lrce_tpu_torch.config`` (lr,
+        reg_strength, use_cosine_scheduler, log_dir, dataset, ...);
+        log_enabled: make the log directory, write ``config.json``,
+        TensorBoard scalars and checkpoints (rank 0); seed: the dropout /
+        drop-path generator's seed; layout: this rank's place in the train
+        mesh (``parallel/mesh.make_layout``), None on one card."""
         self.model = model
         self.cfg = model.cfg
         self.args = args
         self.log_enabled = log_enabled
         self.is_eval = is_eval
+        self.layout = layout
+        self.is_main = PM.global_rank() == 0
         self.uid = int(time.time())
-        self.logger = get_logger(type(self).__name__)
+        self.logger = get_logger(type(self).__name__, PM.global_rank())
         self.device = next(model.parameters()).device
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            fold_seed(seed, layout.batch_rank if layout else 0))
+        self.sharded = layout is not None and (layout.n_model > 1
+                                               or layout.n_fsdp > 1)
+        if layout is not None:
+            wrapped = PS.shard_model(model, layout, train=not is_eval)
+            self.net, self.manual_grads = wrapped.net, wrapped.manual
+        else:
+            self.net, self.manual_grads = model, []
         self.reg_strength = float(getattr(args, "reg_strength", 0.0))
         self.reg_groups = stacked_param_groups(model)
         if is_eval:
@@ -142,17 +174,19 @@ class AgentBase:
             self.optimizer = O.make_optimizer(model, self.lrs)
 
         self.summary_writer = None
-        if log_enabled:
+        if log_enabled and self.is_main:
             self.args.log_dir = os.path.join(args.log_dir,
                                              f"{self.uid}_{args.dataset}")
             self.args.ckpt_dir = os.path.join(self.args.log_dir, "weights")
             os.makedirs(self.args.ckpt_dir, exist_ok=True)
-            try:
-                from torch.utils.tensorboard import SummaryWriter
+            if getattr(args, "tensorboard", True):
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
 
-                self.summary_writer = SummaryWriter(log_dir=self.args.log_dir)
-            except Exception:  # noqa: BLE001 - no TensorBoard: no scalars
-                self.summary_writer = None
+                    self.summary_writer = SummaryWriter(
+                        log_dir=self.args.log_dir)
+                except Exception:  # noqa: BLE001 - no TensorBoard: no scalars
+                    self.summary_writer = None
             self.save_config()
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_error: Optional[BaseException] = None
@@ -167,9 +201,8 @@ class AgentBase:
 
     # ---------------------------------------------------------- step pieces
     def _forward(self, clips, ids, mask, types, training: bool):
-        return e2e_apply(self.model, clips, ids, mask, types,
-                         training=training,
-                         generator=self.generator if training else None)
+        return self.net(clips, ids, mask, types, training=training,
+                        generator=self.generator if training else None)
 
     def _task_loss(self, logits, gt):
         return L.cross_entropy(logits, gt)
@@ -190,18 +223,32 @@ class AgentBase:
         logits = self._forward(clips, ids, mask, types, True)
         loss = self._loss(logits, gt)
         loss.backward()
+        if self.layout is not None:
+            PS.sync_manual_grads(self.manual_grads, self.layout.batch_group,
+                                 self.layout.n_batch)
         O.set_lrs(self.optimizer, self.lrs)
         self.optimizer.step()
         with torch.no_grad():
             m0, m1 = self._metric_pair(logits.detach(), gt)
-            return torch.stack([loss.detach().float(), m0, m1])
+            return self._global(torch.stack([loss.detach().float(), m0, m1]))
 
     @torch.no_grad()
     def _eval_step(self, clips, ids, mask, types, gt) -> torch.Tensor:
         logits = self._forward(clips, ids, mask, types, False)
         loss = self._loss(logits, gt)
         m0, m1 = self._metric_pair(logits, gt)
-        return torch.stack([loss.float(), m0, m1])
+        return self._global(torch.stack([loss.float(), m0, m1]))
+
+    def _global(self, out: torch.Tensor) -> torch.Tensor:
+        """(loss, metric_num, metric_den) of this rank's batch -> those of
+        the global batch: every rank's batch has the same size, so the loss
+        is the mean of the ranks' and the counts their sums."""
+        if self.layout is None or self.layout.batch_group is None:
+            return out
+        out = out * torch.tensor([1.0 / self.layout.n_batch, 1.0, 1.0],
+                                 device=out.device)
+        torch.distributed.all_reduce(out, group=self.layout.batch_group)
+        return out
 
     # ------------------------------------------------------------------ step
     def _put_batch(self, batch: Sequence) -> tuple:
@@ -372,6 +419,11 @@ class AgentBase:
             only_model = not getattr(self.args, "save_full_state", False)
         if not self.log_enabled:
             return
+        # every rank joins the gather of a sharded state, here on the main
+        # thread; rank 0 writes
+        model_state, opt = self._whole_state(only_model)
+        if not self.is_main:
+            return
         if name != "":
             ckpt_path = os.path.join(self.args.ckpt_dir, f"{name}.pt")
         else:
@@ -379,12 +431,10 @@ class AgentBase:
                 self.args.ckpt_dir,
                 C.checkpoint_name(epoch, self.last_loss or 0.0,
                                   self.last_metric_val or 0.0))
-        opt = (None if only_model or self.optimizer is None
-               else self.optimizer.state_dict())
         sched = (None if only_model or self.scheduler is None
                  else self.scheduler.state_dict())
         if not getattr(self.args, "async_checkpoint", False):
-            C.save_checkpoint(ckpt_path, self.model.state_dict(), opt, sched)
+            C.save_checkpoint(ckpt_path, model_state, opt, sched)
             self.logger.info(f"Checkpoint saved to {ckpt_path}")
             return
 
@@ -395,7 +445,7 @@ class AgentBase:
         # joins the previous one first, and do_training joins the last, so
         # a finished run holds no unfinished file.
         self.finish_pending_checkpoint()
-        snap = _StateSnapshot((self.model.state_dict(), opt))
+        snap = _StateSnapshot((model_state, opt))
 
         def _write():
             # a writer's failure (disk full, permissions, serialisation)
@@ -410,6 +460,17 @@ class AgentBase:
         self._ckpt_thread = threading.Thread(
             target=_write, name="lrce-ckpt-writer", daemon=True)
         self._ckpt_thread.start()
+
+    def _whole_state(self, only_model: bool):
+        """(model state, optimizer state or None) as one card holds them;
+        under tensor parallelism or FSDP every rank must call it."""
+        with_opt = not only_model and self.optimizer is not None
+        if not self.sharded:
+            return (self.model.state_dict(),
+                    self.optimizer.state_dict() if with_opt else None)
+        return (PS.full_state_dict(self.model, self.layout),
+                PS.full_optimizer_state(self.model, self.optimizer,
+                                        self.layout) if with_opt else None)
 
     def finish_pending_checkpoint(self):
         """Join the checkpoint writer, if one is in flight, and raise what
@@ -431,10 +492,19 @@ class AgentBase:
             only_model = not getattr(self.args, "save_full_state", False)
         self.finish_pending_checkpoint()    # the file may still be writing
         ckpt = C.load_checkpoint(ckpt_path, self.device)
-        self.model.load_state_dict(ckpt["model_state_dict"])
+        if self.sharded:    # each rank takes its part of every tensor
+            PS.load_full_state_dict(self.model, ckpt["model_state_dict"],
+                                    self.layout)
+        else:
+            self.model.load_state_dict(ckpt["model_state_dict"])
         if (not only_model and "optimizer_state_dict" in ckpt
                 and self.optimizer is not None):
-            self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+            if self.sharded:
+                PS.load_full_optimizer_state(
+                    self.model, self.optimizer, ckpt["optimizer_state_dict"],
+                    self.layout)
+            else:
+                self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
             if "scheduler_state_dict" in ckpt and self.scheduler is not None:
                 # as lrce_tpu: self.lrs keeps the constructor's rates until
                 # the scheduler next steps

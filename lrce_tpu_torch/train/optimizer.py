@@ -4,7 +4,12 @@
 weight decay 0.01, over three parameter groups in this index order:
 fusion_model, text_extractor, video_extractor, each with its own learning
 rate. Its step, p <- p (1 - lr wd) - lr m_hat / (sqrt(v_hat) + eps), is
-``apply_updates``'s p <- p - lr (adam(g) + wd p).
+``apply_updates``'s p <- p - lr (adam(g) + wd p). The step is elementwise,
+so across ranks the same groups hold FSDP's sharded (DTensor) parameters
+and tensor parallelism's local pieces beside whole ones, and each element
+takes the one-card update (``tests/test_torch_parallel.py``); the
+optimizer is made after ``parallel/sharding.shard_model``, over the
+parameters it left.
 """
 
 from __future__ import annotations

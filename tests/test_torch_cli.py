@@ -223,9 +223,12 @@ def test_train_cli_sanity_check(tgif_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--fsdp", "--tensor-parallel"])
 def test_train_cli_refuses_sharding(tgif_dir, tmp_path, flag):
+    """On one process a sharded axis of 2 does not divide the one device:
+    lrce_tpu's make_train_mesh error (the sharded runs themselves:
+    tests/test_torch_cli_ddp.py)."""
     args = PC.parse_arg_train(_train_argv(tgif_dir, tmp_path / "runs") + [
         flag, "2"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="must divide the device count"):
         PTr.main(args, device="cpu", model_cfg=tiny_cfg(args))
 
 

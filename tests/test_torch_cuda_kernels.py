@@ -266,16 +266,32 @@ def _mlp_args(rng, dev, shape, ff):
     return x, g, args, dp
 
 
-def _kernel_launches(fn):
-    """fn's result and the kernels one call of it launched (torch.profiler)."""
+def _kernel_launches(fn, tries: int = 3):
+    """fn's result, the kernels one call of it launched (torch.profiler)
+    and the number of calls made.
+
+    A marker kernel runs inside the profiled region before the call, and
+    the region synchronizes before it closes. fn computes on the card, so
+    a capture that holds no kernel beside the marker lost events
+    (torch.profiler has returned no CUDA events, or only some, for a call
+    late in a long process) and is taken again, calling fn again, up to
+    ``tries`` times. The count leaves out the marker."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    marker = torch.zeros(1, device="cuda")
+    for calls in range(1, tries + 1):
         torch.cuda.synchronize()
-    return out, sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.add_(1)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if kernels >= 2:
+            return out, kernels - 1, calls
+    raise AssertionError(f"torch.profiler captured no CUDA kernel of the "
+                         f"call in {tries} tries")
 
 
 # (B, D, H, W, C), FF: the narrow test geometry; stage 3 at 3 clips (T = 441:
@@ -297,8 +313,9 @@ def test_k7(dev, shape, with_dp):
     before = SB.fused_ln_mlp.launches
     with torch.no_grad():
         got = SB.fused_ln_mlp(x, *args, dp)
-        again, kernels = _kernel_launches(lambda: SB.fused_ln_mlp(x, *args, dp))
-    assert SB.fused_ln_mlp.launches == before + 2
+        again, kernels, calls = _kernel_launches(
+            lambda: SB.fused_ln_mlp(x, *args, dp))
+    assert SB.fused_ln_mlp.launches == before + 1 + calls
     assert kernels == 1
     _close(got, SB.ln_mlp_plain(x, *args, dp))
     assert torch.equal(got, again)
@@ -317,8 +334,8 @@ def test_k8(dev, shape):
     before = M.fused_mlp.launches
     with torch.no_grad():
         got = M.fused_mlp(x, *args)
-        again, kernels = _kernel_launches(lambda: M.fused_mlp(x, *args))
-    assert M.fused_mlp.launches == before + 2
+        again, kernels, calls = _kernel_launches(lambda: M.fused_mlp(x, *args))
+    assert M.fused_mlp.launches == before + 1 + calls
     assert kernels == 1
     _close(got, M.fused_mlp_plain(x, *args))
     assert torch.equal(got, again)
