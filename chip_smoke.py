@@ -90,8 +90,8 @@ Phases, each raising on failure (the script then exits non-zero):
      stage, BERT, the fusion) against the stated limit;
   8. cli: the file-based path through the command lines a user runs. A
      TGIF-frameqa directory made from a seed in a temporary directory (8
-     GIFs of 12-40 frames written by ``write_gif`` without an image
-     library, seven at 224 x 224 and one at 320 x 240; 32 train and 16 test
+     GIFs of 12-40 frames written by ``tools/synth.write_gif`` without an
+     image library, seven at 224 x 224 and one at 320 x 240; 32 train and 16 test
      questions in the tab-separated annotation files; a vocab.txt). The
      port's native library (``lrce_tpu_torch/native``) is built with g++
      and required, and so is its WordPiece on the dataset's tokenizer; one
@@ -127,7 +127,21 @@ Phases, each raising on failure (the script then exits non-zero):
      line: the CLI's walls, step ms and peak, each two-rank run's step ms
      and peak a rank, the gradient all-reduce's share over gloo (through
      the host: no NCCL figure);
- 10. a JSON line of kernels, then the last line
+ 10. tools: each tool of ``lrce_tpu_torch/tools`` through its ``main`` at
+     full width, iteration counts cut (``phase_tools``): first the forward
+     at 32 questions x 3 clips (96 clips, bench.py's inputs) and at 1 x 3
+     clips on the kernel route, K1 11, K3 11, K2 2 launches each and no
+     other kernel, held to the plain route as in 4; then preflight,
+     profile --latency (20 requests, K1 / K3 / K2 counted on each),
+     stage_bench (48 clips, K7 on stage 3), train_bench (batch 16, K7),
+     e2e_eval_bench (64 questions of the synthetic sanity set, batch 32),
+     sanity_curve (500 samples, 2 epochs: finite losses, whether the loss
+     fell), parity_eval on the sanity run's weights (its loss within 1e-4
+     of ``cli.eval.main``'s), extract_features video and text on 4 GIFs,
+     flops and graft_entry's forward; each tool's kernels must launch. One
+     ``[tools]`` line of the walls and headline numbers; bench_ingest is
+     not run (cv2);
+ 11. a JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
@@ -142,11 +156,14 @@ fused functions.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import io
 import itertools
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -205,29 +222,27 @@ LN_MLP_BACKWARD = {**CALLS_PER_BACKWARD, "K5": (2, 2, 18, 2)}
 TRAIN_BATCH = 16                # questions per step (tools/train_bench.py)
 TRAIN_CLIPS = TRAIN_BATCH * 3   # the Swin batch of a train step
 TRAIN_STEPS = 2
+# clip counts phase_tools gives K1 / K3 / K2 besides 6 and 48, held per
+# kernel in phase_kernels: one question (profile --latency: odd window
+# counts, row tails) and bench.py's 32 questions (preflight, e2e_eval_bench,
+# parity_eval: T = 903,168 tokens at stage 0), the most any tool gives them
+TOOLS_CLIPS = (3, 96)
 RUN_TRAIN_ITEMS, RUN_VAL_ITEMS = 64, 16     # the training run's dataset
 KERNEL_ORDER = ("K1", "K3", "K2", "K7", "K8", "K6", "K5", "K4")
 PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense
 PEAK_BYTES_PER_S = 3.35e12
 EVAL_REPRODUCE_REL = 1e-6
-# phase_cli: a TGIF-frameqa dataset on disk, (width, height, frames) per GIF
-# (most at 224 x 224, where the resize is the identity; one at 320 x 240,
-# where the native resize runs), questions per split (the CLIs' default
+# phase_cli: a TGIF-frameqa dataset on disk (``tools/synth.
+# write_tgif_frameqa``'s GIFs), questions per split (the CLIs' default
 # batch of 20: 20 train steps, far more than the loader's lookahead of
 # CLI_LOOKAHEAD batches, so the steps after it show whether the loader keeps
 # up), the items timed alone on the host
-CLI_GIFS = ((224, 224), (224, 224), (224, 224), (224, 224), (224, 224),
-            (224, 224), (224, 224), (320, 240))
-CLI_FRAMES = (12, 40)
 CLI_TRAIN_QUESTIONS, CLI_TEST_QUESTIONS = 400, 40
 CLI_HOST_ITEMS = 32
 # batches the train loop can draw without waiting once its first step ends:
 # the loader's queue (2) and the batch its producer holds (1);
 # device_prefetch pulls its depth (2) and one more before that step
 CLI_LOOKAHEAD = 3
-CLI_SUBJECTS = ("man", "woman", "dog", "cat", "girl", "boy")
-CLI_VERBS = ("doing", "holding", "wearing", "eating")
-CLI_ANSWERS = ("guitar", "hat", "ball", "dance", "red", "food", "phone")
 
 
 class SmokeFailure(RuntimeError):
@@ -396,24 +411,51 @@ def _seeded(shape, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen)).cuda().bfloat16()
 
 
-def _one_launch_repeat(name: str, run) -> None:
-    """A wrapper call launches one kernel (torch.profiler), and a second
-    call on the same inputs equals the first bit for bit."""
+PROFILE_TRIES = 3    # captures _one_launch_checks takes before it fails
+
+
+def _one_launch_checks(checks) -> None:
+    """Each wrapper call of ``checks`` ((name, run) pairs) launches one
+    kernel (torch.profiler), and a second call on the same inputs equals
+    the first bit for bit.
+
+    All the calls run in one profiled region, each after a marker kernel
+    (``torch.cuda._sleep``'s ``spin_kernel``, found by its name) and a
+    synchronize; the kernels between two markers are one call's. A capture
+    with fewer markers than calls lost events (torch.profiler has returned
+    no CUDA events for a region late in a long process) and is taken
+    again, up to PROFILE_TRIES times; if none holds every marker, the
+    check fails."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
-        first = run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = run()
+        firsts = [run() for _, run in checks]
+        for _ in range(PROFILE_TRIES):
             torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"[kernels] {name}: {len(kernels)} kernel launch(es) a call "
-          f"{sorted(set(k[:60] for k in kernels))}, repeat bit-identical "
-          f"{torch.equal(first, again)}", flush=True)
-    require(len(kernels) == 1, f"{name}: {len(kernels)} launches a call")
-    require(torch.equal(first, again), f"{name}: a second launch differs")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                agains = []
+                for _, run in checks:
+                    torch.cuda._sleep(1000)
+                    torch.cuda.synchronize()
+                    agains.append(run())
+                    torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+            if len(marks) == len(checks):
+                break
+    require(len(marks) == len(checks), f"one launch a call: the profiler "
+            f"caught {len(marks)} of {len(checks)} markers in "
+            f"{PROFILE_TRIES} captures")
+    for (name, _), first, again, lo, hi in zip(
+            checks, firsts, agains, marks, marks[1:] + [len(events)]):
+        kernels = [e.name for e in events[lo + 1:hi]]
+        print(f"[kernels] {name}: {len(kernels)} kernel launch(es) a call "
+              f"{sorted(set(k[:60] for k in kernels))}, repeat bit-identical "
+              f"{torch.equal(first, again)}", flush=True)
+        require(len(kernels) == 1, f"{name}: {len(kernels)} launches a call")
+        require(torch.equal(first, again), f"{name}: a second launch differs")
 
 
 def _matmul_yardstick(name: str, t: int, c: int, ff: int, gen) -> float:
@@ -732,6 +774,7 @@ def phase_kernels():
     per_call = []
 
     call_ms = {}    # (kernel, clips, stage, masked) -> per-call kernel ms
+    one_launch = []     # (name, run) of each K7 / K8 call held to one launch
     back_half_ms = {}   # (clips, stage, shifted) -> the back half alone
 
     def record(kernel, calls, label, run_k, run_p, work, timed=None,
@@ -809,7 +852,7 @@ def phase_kernels():
                 for with_dp in (False, True):
                     k7 = (x, *mlp, dp if with_dp else None, 1e-5)
 
-                    def run_k7():
+                    def run_k7(k7=k7, with_dp=with_dp):
                         if with_dp:
                             return SB.fused_ln_mlp(*k7)
                         with torch.no_grad():
@@ -821,9 +864,9 @@ def phase_kernels():
                            lambda: SB.ln_mlp_plain(*k7),
                            _work("K7", clips, stage, with_dp=with_dp),
                            timed=True)
-                    _one_launch_repeat(f"K7 {label} "
+                    one_launch.append((f"K7 {label} "
                                        + ("dp2" if with_dp else "no dp2"),
-                                       run_k7)
+                                       run_k7))
                 _matmul_yardstick(f"K7 {label}", x.numel() // c, c, 4 * c,
                                   gen)
                 k5 = (x, g, *mlp[:5], dp, 1e-5)
@@ -875,14 +918,14 @@ def phase_kernels():
                 # K8 at the shape it was written for, without autograd
                 k8 = (x, *mlp, 1e-5)
 
-                def run_k8():
+                def run_k8(k8=k8):
                     with torch.no_grad():
                         return M.fused_mlp(*k8)
 
                 record("K8", 1, label, run_k8,
                        lambda: M.fused_mlp_plain(*k8),
                        _work("K8", clips, stage), timed=True)
-                _one_launch_repeat(f"K8 {label}", run_k8)
+                one_launch.append((f"K8 {label}", run_k8))
                 _matmul_yardstick(f"K8 {label}", x.numel() // c, c, 4 * c,
                                   gen)
             if stage == 1:
@@ -890,14 +933,14 @@ def phase_kernels():
                 # step's totals
                 k8w = (x, *mlp, 1e-5)
 
-                def run_k8w():
+                def run_k8w(k8w=k8w):
                     with torch.no_grad():
                         return M.fused_mlp(*k8w)
 
                 record("K8", 0, label, run_k8w,
                        lambda: M.fused_mlp_plain(*k8w),
                        _work("K8", clips, stage), timed=True)
-                _one_launch_repeat(f"K8 {label}", run_k8w)
+                one_launch.append((f"K8 {label}", run_k8w))
             for masked in (False, True):
                 m, s = (mask, SHIFT) if masked else (None, NO_SHIFT)
                 tag = label + (" masked, shift (0,3,3)" if masked
@@ -942,6 +985,45 @@ def phase_kernels():
                        _work("K3", clips, stage, True, True))
             del x, g
             torch.cuda.empty_cache()
+    # the other clip counts the tools give K1 / K3 / K2 (phase_tools), each
+    # held to its plain version outside the step's totals
+    for clips in TOOLS_CLIPS:
+        by_clips[clips] = totals()
+        for stage, (d, h, w, c, heads) in enumerate(STAGES):
+            x = _seeded((clips, d, h, w, c), gen)
+            p = _block_weights(c, heads, n, gen, None)
+            attn = [p[k] for k in ATTN_KEYS]
+            label = f"stage {stage} {tuple(x.shape)}"
+            if stage == 3:
+                args = (x, *attn, None, WINDOW, heads)
+                record("K2", 0, label,
+                       lambda: WA.fused_window_attention_hsplit(*args),
+                       lambda: WA.window_attention_plain(*args),
+                       _work("K2", clips, stage))
+            else:
+                mlp = [p[k] for k in MLP_KEYS]
+                k1 = (x, *attn, None, *mlp, None, None, WINDOW, heads)
+                record("K1", 0, label, lambda: SB.fused_swin_block(*k1),
+                       lambda: SB.swin_block_plain(*k1),
+                       _work("K1", clips, stage))
+                mask = torch.from_numpy(compute_shift_mask((d, h, w), WINDOW,
+                                                           SHIFT))
+                mask = mask.reshape(d // WINDOW[0], h // WINDOW[1],
+                                    w // WINDOW[2], n, n).cuda()
+                q = _block_weights(c, heads, n, gen, 1)
+                k3 = (x, *(q[k] for k in ATTN_KEYS), mask,
+                      *(q[k] for k in MLP_KEYS), None, None, WINDOW, heads,
+                      (SHIFT,))
+                record("K3", 0, label + " k=1",
+                       lambda: SB.fused_swin_pair(*k3),
+                       lambda: SB.swin_pair_plain(*k3),
+                       _work("K3", clips, stage, masked=True))
+                del q, k1, k3
+            del x, p, attn
+            torch.cuda.empty_cache()
+        for k, r in by_clips.pop(clips).items():
+            by_clips[N_CLIPS][k]["max_abs_err"] = max(
+                by_clips[N_CLIPS][k]["max_abs_err"], r["max_abs_err"])
     # K7 where T is no multiple of the 128-row tile, at an odd sample count:
     # 3 clips, T = 441, with and without dp2 (fc2 in eight slices of FF)
     clips, train_shape = 3, False
@@ -956,11 +1038,14 @@ def phase_kernels():
         record("K7", 0, tag, lambda: SB.fused_ln_mlp(*k7r),
                lambda: SB.ln_mlp_plain(*k7r),
                _work("K7", clips, 3, with_dp=with_dp))
-        _one_launch_repeat(f"K7 {tag}", lambda: SB.fused_ln_mlp(*k7r))
+        one_launch.append((f"K7 {tag}",
+                           lambda k7r=k7r: SB.fused_ln_mlp(*k7r)))
     by_clips[N_CLIPS]["K7"]["max_abs_err"] = max(
         by_clips[N_CLIPS]["K7"]["max_abs_err"],
         by_clips.pop(clips)["K7"]["max_abs_err"])
     del x, mlp
+    _one_launch_checks(one_launch)
+    del one_launch
     torch.cuda.synchronize()
     for count, res in by_clips.items():
         for k, r in res.items():
@@ -1060,6 +1145,33 @@ def _counts():
     return {k: w.launches for k, w in _wrappers().items()}
 
 
+def _hold_to_plain(out: torch.Tensor, ref: torch.Tensor, shape: tuple,
+                   label: str) -> float:
+    """Logits of the kernel route against the plain route's: the shape,
+    finite, relative L2 within FORWARD_REL_L2, and the same argmax wherever
+    the plain route's top-2 margin is wider than twice the largest logit
+    difference. Prints one line and returns the relative L2."""
+    require(tuple(out.shape) == shape, f"{label}: logits shape "
+            f"{tuple(out.shape)}, expected {shape}")
+    require(bool(torch.isfinite(out).all()), f"{label}: non-finite logits")
+    o, r = out.float(), ref.float()
+    rel_l2 = ((o - r).norm() / r.norm()).item()
+    max_abs = (o - r).abs().max().item()
+    top2 = r.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1])
+    same = (o.argmax(-1) == r.argmax(-1))
+    decided = margin > 2 * max_abs
+    print(f"{label}: rel_l2 {rel_l2:.4g} (limit {FORWARD_REL_L2}), max_abs "
+          f"{max_abs:.4g}, argmax equal {int(same.sum())} of {len(same)}, "
+          f"{int(decided.sum())} decided by the plain top-2 margin (smallest "
+          f"margin {margin.min().item():.4g})", flush=True)
+    require(rel_l2 <= FORWARD_REL_L2, f"{label}: disagrees with the plain "
+            "route")
+    require(bool(same[decided].all()),
+            f"{label}: argmax differs where the margin decides it")
+    return rel_l2
+
+
 def phase_forward():
     from lrce_tpu_torch.models.e2e import E2EConfig, LRCEModel, e2e_forward
 
@@ -1117,26 +1229,8 @@ def phase_forward():
 
     def check(outs, label):
         for i, (out, ref) in enumerate(zip(outs, refs)):
-            require(tuple(out.shape) == (2, 1000),
-                    f"logits shape {tuple(out.shape)}")
-            require(bool(torch.isfinite(out).all()), "non-finite logits")
-            o, r = out.float(), ref.float()
-            rel_l2 = ((o - r).norm() / r.norm()).item()
-            max_abs = (o - r).abs().max().item()
-            top2 = r.topk(2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1])
-            same = (o.argmax(-1) == r.argmax(-1))
-            # a prediction must agree wherever the plain route's top-2
-            # margin is wider than twice the largest logit difference
-            decided = margin > 2 * max_abs
-            print(f"[forward] {label}, request {i}: rel_l2 {rel_l2:.4g} "
-                  f"(limit {FORWARD_REL_L2}), max_abs {max_abs:.4g}, argmax "
-                  f"equal {same.tolist()}, plain top-2 margins "
-                  f"{[round(v, 4) for v in margin.tolist()]}", flush=True)
-            require(rel_l2 <= FORWARD_REL_L2,
-                    f"{label} disagrees with the plain route")
-            require(bool(same[decided].all()),
-                    "argmax differs where the margin decides it")
+            _hold_to_plain(out, ref, (2, 1000), f"[forward] {label}, request "
+                           f"{i}")
 
     check(outs, "kernel route")
 
@@ -1485,108 +1579,6 @@ def phase_route_parity():
     return worst
 
 
-# A GIF writer with no image library: a global 256-colour palette, full
-# frames, no transparency, and an LZW stream that never compresses. With a
-# minimum code size of 8 every literal is a 9-bit code; a decoder adds a
-# table entry for each code after the first since the last clear code, and
-# widens its codes to 10 bits when the table reaches 512 entries, so a clear
-# code before every 254 literals keeps the table at 511 and the width at 9.
-GIF_LZW_RUN = 254
-
-
-def _gif_lzw(indices: np.ndarray) -> bytes:
-    """The LZW stream of one frame's palette indices (8-bit minimum code
-    size), one literal code per pixel."""
-    px = indices.reshape(-1).astype(np.uint16)
-    runs = -(-px.size // GIF_LZW_RUN)
-    pad = runs * GIF_LZW_RUN - px.size
-    body = np.concatenate([px, np.zeros(pad, np.uint16)]).reshape(
-        runs, GIF_LZW_RUN)
-    codes = np.concatenate([np.full((runs, 1), 256, np.uint16), body],
-                           axis=1).reshape(-1)
-    codes = np.append(codes[:codes.size - pad], np.uint16(257))  # end code
-    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1)
-    return np.packbits(bits.astype(np.uint8).reshape(-1),
-                       bitorder="little").tobytes()
-
-
-def _gif_blocks(data: bytes) -> bytes:
-    """``data`` as GIF sub-blocks of at most 255 bytes, then the
-    terminator."""
-    out = bytearray()
-    for i in range(0, len(data), 255):
-        chunk = data[i:i + 255]
-        out.append(len(chunk))
-        out += chunk
-    out.append(0)
-    return bytes(out)
-
-
-def write_gif(path: str, frames: np.ndarray, palette: np.ndarray) -> None:
-    """``frames``: (n, h, w) uint8 palette indices; ``palette``: (256, 3)
-    uint8 RGB. Frame k decodes to ``palette[frames[k]]``."""
-    n, h, w = frames.shape
-    out = bytearray(b"GIF89a")
-    out += np.array([w, h], "<u2").tobytes()
-    out += bytes([0xF7, 0, 0])  # global table of 2^(7+1) colours; bg 0
-    out += np.ascontiguousarray(palette, np.uint8).tobytes()
-    for k in range(n):
-        # graphic control: disposal 1 (leave), no transparency, 40 ms
-        out += bytes([0x21, 0xF9, 4, 0x04, 4, 0, 0, 0])
-        out += b"\x2c" + np.array([0, 0, w, h], "<u2").tobytes() + b"\x00"
-        out += bytes([8]) + _gif_blocks(_gif_lzw(frames[k]))
-    out += b"\x3b"
-    with open(path, "wb") as f:
-        f.write(bytes(out))
-
-
-def write_tgif_frameqa(root: str, seed: int,
-                       train_questions: int = CLI_TRAIN_QUESTIONS,
-                       test_questions: int = CLI_TEST_QUESTIONS) -> dict:
-    """A TGIF-frameqa dataset directory under ``root``, made from ``seed``:
-    ``gifs/`` (CLI_GIFS, CLI_FRAMES frames each), ``annotations/
-    {Train,Test,Total}_frameqa_question.csv`` (train_questions and
-    test_questions questions over the GIFs, Total = both) and a
-    ``vocab.txt`` of the words used. Returns {gif name: (frames, palette)}
-    and the vocab's path."""
-    rng = np.random.default_rng(seed)
-    os.makedirs(os.path.join(root, "gifs"))
-    os.makedirs(os.path.join(root, "annotations"))
-    gifs = {}
-    for i, (w, h) in enumerate(CLI_GIFS):
-        name = f"tumblr_{i:02d}"
-        n = int(rng.integers(CLI_FRAMES[0], CLI_FRAMES[1] + 1))
-        frames = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
-        palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
-        write_gif(os.path.join(root, "gifs", f"{name}.gif"), frames, palette)
-        gifs[name] = (frames, palette)
-    names = sorted(gifs)
-
-    def rows(count):
-        out = []
-        for _ in range(count):
-            g = int(rng.integers(len(names)))
-            q = (f"what is the {CLI_SUBJECTS[rng.integers(len(CLI_SUBJECTS))]}"
-                 f" {CLI_VERBS[rng.integers(len(CLI_VERBS))]} ?")
-            a = CLI_ANSWERS[rng.integers(len(CLI_ANSWERS))]
-            out.append(f"{names[g]}\t{q}\t{a}\t{g}")
-        return out
-
-    header = "gif_name\tquestion\tanswer\tvid_id"
-    train, test = rows(train_questions), rows(test_questions)
-    for split, body in (("Train", train), ("Test", test),
-                        ("Total", train + test)):
-        with open(os.path.join(root, "annotations",
-                               f"{split}_frameqa_question.csv"), "w") as f:
-            f.write("\n".join([header] + body) + "\n")
-    vocab = os.path.join(root, "vocab.txt")
-    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "what", "is",
-             "the", "?", *CLI_SUBJECTS, *CLI_VERBS, *CLI_ANSWERS]
-    with open(vocab, "w") as f:
-        f.write("\n".join(words) + "\n")
-    return {"gifs": gifs, "vocab": vocab}
-
-
 def _cli_host_ms(dataset) -> dict:
     """Host ms per item of the loader's work, on the dataset's first
     CLI_HOST_ITEMS items alone: native GIF probe + decode (up to the last
@@ -1618,8 +1610,8 @@ def _cli_host_ms(dataset) -> dict:
 
 def phase_cli(card: str):
     """The file-based path through the port's command lines: a TGIF-frameqa
-    dataset written to disk (GIFs by ``write_gif``, tab-separated questions,
-    a vocab.txt), the native library built and required, decoded clips held
+    dataset written to disk (GIFs by ``synth.write_gif``, tab-separated
+    questions, a vocab.txt), the native library built and required, decoded clips held
     byte for byte against the frames written, then ``cli.train.main`` for
     one epoch at full width (Swin-B, BERT-base, 12 fusion layers, oe, 1000
     classes) and ``cli.eval.main`` on its ``best.pt``."""
@@ -1628,6 +1620,7 @@ def phase_cli(card: str):
     from lrce_tpu_torch.cli import train as cli_train
     from lrce_tpu_torch.config import parse_arg_eval, parse_arg_train
     from lrce_tpu_torch.data.sampling import clip_indices
+    from lrce_tpu_torch.tools.synth import write_tgif_frameqa
 
     core, video = native.built(native.CORE), native.built(native.VIDEO)
     require(core.lib is not None and native.native_available(),
@@ -1706,7 +1699,8 @@ def phase_cli(card: str):
 
     with tempfile.TemporaryDirectory(prefix="lrce_cli_") as root:
         data = os.path.join(root, "tgif")
-        written = write_tgif_frameqa(data, seed=31)
+        written = write_tgif_frameqa(data, 31, CLI_TRAIN_QUESTIONS,
+                                     CLI_TEST_QUESTIONS)
         os.environ["LRCE_TPU_BERT_VOCAB"] = written["vocab"]
         try:
             argv = ["--dataset", "tgif-frameqa", "--dataset-dir", data]
@@ -2059,6 +2053,7 @@ def phase_ddp(card: str):
     from lrce_tpu_torch.cli import train_ddp as cli_train_ddp
     from lrce_tpu_torch.config import parse_arg_eval
     from lrce_tpu_torch.parallel import mesh as PM
+    from lrce_tpu_torch.tools.synth import write_tgif_frameqa
 
     train_step = {"K7": 0, "K8": 0,
                   **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
@@ -2272,6 +2267,240 @@ def phase_ddp_ranks(card: str, questions: int = DDP_QUESTIONS,
     return {"runs": report, "spawn_s": spawn_wall}
 
 
+# ---------------------------------------------------------------------------
+# The tools (lrce_tpu_torch/tools/) at full width
+# ---------------------------------------------------------------------------
+
+# the iteration counts the tools run with here, so that the phase stays
+# within about three minutes
+TOOLS_STAGE_ITERS = 5
+TOOLS_TRAIN_ITERS = 3
+TOOLS_EVAL_QUESTIONS = 64
+TOOLS_SANITY_EPOCHS = 2
+TOOLS_FEATURE_GIFS = 4
+TOOLS_FLOPS_STEPS = 3
+
+
+def _tool(name: str, fn, walls: dict):
+    """Run one tool's entry point with its standard output captured, then
+    print that output with a ``[tools:<name>]`` prefix; the host seconds
+    from a synchronised start to a synchronised end go into ``walls``.
+    Returns (its return value, its output)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    torch.cuda.synchronize()
+    walls[name] = round(time.perf_counter() - t0, 2)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"[tools:{name}] {line}", flush=True)
+    return out, text
+
+
+def _tools_forward(batch: int) -> dict:
+    """The flagship forward at ``batch`` questions x 3 clips (bench.py's
+    inputs, ``tools/common.bench_inputs``) on the kernel route, its launches
+    counted, held to the plain route."""
+    from lrce_tpu_torch.models.e2e import e2e_forward
+    from lrce_tpu_torch.tools import common
+
+    device = torch.device("cuda")
+    model = common.flagship(device).eval()
+    inputs = common.bench_inputs(batch, model.cfg, device)
+    e2e_forward(model, *inputs)
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = e2e_forward(model, *inputs)
+    torch.cuda.synchronize()
+    counts = _counts()
+    per = {k: sum(v) for k, v in CALLS_PER_FORWARD.items()}
+    for k, n in counts.items():
+        require(n == per.get(k, 0), f"{batch * 3}-clip forward: {k} launched "
+                f"{n} times, expected {per.get(k, 0)}")
+    model.video_extractor.swin.use_kernels = False
+    ref = e2e_forward(model, *inputs)
+    rel = _hold_to_plain(out, ref, (batch, 1000),
+                         f"[tools] {batch * 3}-clip forward vs plain route")
+    del model, out, ref
+    torch.cuda.empty_cache()
+    return {"clips": batch * 3, "rel_l2": rel, "launches": counts}
+
+
+def _launched(name: str, kernels) -> dict:
+    counts = _counts()
+    for k in kernels:
+        require(counts[k] > 0, f"{name}: {k} never launched")
+    return counts
+
+
+def phase_tools(card: str):
+    """Each tool of ``lrce_tpu_torch/tools`` through its ``main`` at full
+    width on the card (Swin-B, BERT-base, 12 fusion layers, oe, 1000
+    classes), with iteration counts cut to fit the phase: preflight (the
+    96-clip bench forward and a batch-16 train step), profile --latency
+    (batch 1, 3 clips, 20 requests), stage_bench (48 clips, four stages,
+    K7 on stage 3), train_bench (batch 16, K7, four regimes), e2e_eval_bench
+    (64 questions, batch 32, 2 workers), sanity_curve (500 samples, 2
+    epochs), parity_eval on the sanity run's weights (batch 32),
+    extract_features video and text on 4 GIFs, flops (3
+    doublings) and graft_entry's forward. Before them, the forward at 96
+    clips and at 3 clips on the kernel route, launches counted, against the
+    plain route. bench_ingest does not run here: it measures the host's
+    .avi / .mp4 ingest of videos it writes with cv2, not the card. One
+    ``[tools]`` line."""
+    from lrce_tpu_torch.tools import (common, e2e_eval_bench,
+                                      extract_features, flops, graft_entry,
+                                      parity_eval, preflight, profile,
+                                      sanity_curve, stage_bench, synth,
+                                      train_bench)
+    from lrce_tpu_torch.utils.checkpoint import save_checkpoint
+
+    forward_kernels = ("K1", "K3", "K2")
+    train_kernels = forward_kernels + ("K6", "K5", "K4")
+    walls, report = {}, {}
+    report["forward96"] = _tools_forward(preflight.BENCH_BATCH)
+    report["forward3"] = _tools_forward(1)
+
+    _reset_counts()
+    rc, text = _tool("preflight", lambda: preflight.main([]), walls)
+    pre = json.loads(text.strip().splitlines()[-1])
+    require(rc == 0 and pre["preflight"] == "pass", f"preflight: {pre}")
+    _launched("preflight", train_kernels)
+    report["preflight_first_s"] = {k: v["compile_plus_first_s"]
+                                   for k, v in pre["checks"].items()}
+
+    _reset_counts()
+    lat, _ = _tool("profile", lambda: profile.main(["--latency"]), walls)
+    per = {k: sum(v) for k, v in CALLS_PER_FORWARD.items()}
+    requests = 1 + len(lat["latency_ms"])
+    counts = _counts()
+    for k in forward_kernels:
+        require(counts[k] == per[k] * requests, f"profile --latency: {k} "
+                f"launched {counts[k]} times over {requests} requests")
+    report["latency_ms"] = {"p50": lat["p50_ms"], "p90": lat["p90_ms"],
+                            "requests": len(lat["latency_ms"])}
+
+    _reset_counts()
+    stages, _ = _tool("stage_bench", lambda: stage_bench.main(
+        ["--clips", "48", "--iters", str(TOOLS_STAGE_ITERS), "--ln-mlp"]),
+        walls)
+    _launched("stage_bench", forward_kernels + ("K7",))
+    report["stage_ms"] = [(r["stage"], round(r["kernel_ms"], 3),
+                           round(r["plain_ms"], 3)) for r in stages]
+
+    _reset_counts()
+    tb, _ = _tool("train_bench", lambda: train_bench.main(
+        ["--batch", "16", "--iters", str(TOOLS_TRAIN_ITERS), "--ln-mlp"]),
+        walls)
+    _launched("train_bench", train_kernels + ("K7",))
+    require(math.isfinite(tb["loss"]), f"train_bench: loss {tb['loss']}")
+    report["train_bench"] = {
+        k: round(tb[k], 2) for k in tb if k.endswith(("_ms", "_clips_s"))}
+    report["train_bench"]["peak_gib"] = round(tb["peak_gib"], 2)
+
+    with tempfile.TemporaryDirectory(prefix="lrce_tools_") as root:
+        _reset_counts()
+        ev, _ = _tool("e2e_eval_bench", lambda: e2e_eval_bench.main(
+            ["--samples", str(TOOLS_EVAL_QUESTIONS), "--batch-size", "32",
+             "--workers", "2", "--keep-dir", os.path.join(root, "eval")]),
+            walls)
+        _launched("e2e_eval_bench", forward_kernels)
+        require(math.isfinite(ev["loss"]), f"e2e_eval_bench: loss {ev}")
+        report["eval_clips_s"] = {k: round(ev[k], 1)
+                                  for k in e2e_eval_bench.PASSES}
+
+        sanity_dir = os.path.join(root, "sanity")
+        _reset_counts()
+        sc, _ = _tool("sanity_curve", lambda: sanity_curve.main(
+            ["--samples", "500", "--epochs", str(TOOLS_SANITY_EPOCHS),
+             "--keep-dir", sanity_dir]), walls)
+        _launched("sanity_curve", train_kernels)
+        curve = [r["loss"] for r in sc["curve"]]
+        acc = [r["acc_pct"] for r in sc["curve"]]
+        require(len(curve) == TOOLS_SANITY_EPOCHS
+                and all(math.isfinite(v) for v in curve),
+                f"sanity_curve: losses {curve}")
+        best = os.path.join(root, "best.pt")
+        save_checkpoint(best, sc["trainer"].model.state_dict())
+        del sc
+        torch.cuda.empty_cache()
+        report["sanity"] = {"loss": curve, "acc_pct": acc}
+        print(f"[tools] sanity curve losses {curve}: the loss "
+              f"{'fell' if curve[-1] < curve[0] else 'did not fall'}",
+              flush=True)
+
+        # batch 32: no forward of the phase goes past TOOLS_CLIPS' 96 clips
+        argv = ["--dataset", "tgif-frameqa", "--dataset-dir", sanity_dir,
+                "--batch-size", "32", "--num-workers", "4",
+                "--model-path", best]
+        _reset_counts()
+        with common.bert_vocab(os.path.join(sanity_dir, "vocab.txt")):
+            rc, text = _tool("parity_eval", lambda: parity_eval.main(argv),
+                             walls)
+        _launched("parity_eval", forward_kernels)
+        par = json.loads(text.strip().splitlines()[-1])
+        require(rc == 0 and math.isfinite(par["loss"])
+                and math.isfinite(par["measured"]),
+                f"parity_eval exited {rc}: {par}")
+        report["parity_eval"] = {"accuracy_pct": par["measured"],
+                                 "loss": par["loss"]}
+        torch.cuda.empty_cache()
+
+        feat = os.path.join(root, "features")
+        os.makedirs(feat)
+        written = synth.build_dataset(feat, TOOLS_FEATURE_GIFS,
+                                      TOOLS_FEATURE_GIFS)
+        _reset_counts()
+        _tool("extract_features video", lambda: extract_features.main(
+            ["video", "--videos-dir", os.path.join(feat, "gifs"),
+             "--out-dir", os.path.join(feat, "video")]), walls)
+        _launched("extract_features video", forward_kernels)
+        with common.bert_vocab(os.path.join(feat, "vocab.txt")):
+            _tool("extract_features text", lambda: extract_features.main(
+                ["text", "--annotation", os.path.join(
+                    feat, "annotations", "Test_frameqa_question.csv"),
+                 "--out-dir", os.path.join(feat, "text"), "--tgif"]), walls)
+        shapes = set()
+        for sub, names in (("video", written), ("text", range(
+                TOOLS_FEATURE_GIFS))):
+            for n in names:
+                with open(os.path.join(feat, sub, f"{n}.pkl"), "rb") as f:
+                    a = pickle.load(f)
+                require(a.dtype == np.float32 and np.isfinite(a).all(),
+                        f"extract_features {sub}: {n} {a.dtype}")
+                shapes.add((sub, a.shape))
+        require(shapes == {("video", (6, 3, 49, 1024)), ("text", (30, 768))},
+                f"extract_features: shapes {shapes}")
+
+    rows, _ = _tool("flops", lambda: flops.main(
+        ["--steps", str(TOOLS_FLOPS_STEPS)]), walls)
+    for name, data in rows.items():
+        require(all(math.isfinite(r["memory_mb"]) and r["mflops"] > 0
+                    for r in data), f"flops: {name} {data}")
+    report["flops_mflops"] = {n: [r["mflops"] for r in d]
+                              for n, d in rows.items()}
+
+    def graft():
+        fn, args = graft_entry.entry()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        require(tuple(out.shape) == (2, 1000)
+                and bool(torch.isfinite(out).all()),
+                f"graft_entry: logits {tuple(out.shape)}")
+
+    _reset_counts()
+    _tool("graft_entry", graft, walls)
+    _launched("graft_entry", forward_kernels)
+    print("[tools] bench_ingest not run: it measures the host's .avi / .mp4 "
+          "ingest of videos it writes with cv2, not the card (its CPU test "
+          "runs it)", flush=True)
+    report["wall_s"] = walls
+    print(f"[tools] {card}; " + json.dumps(report, default=str), flush=True)
+    return report
+
+
 SOURCES = {
     "K1": ("fused_swin_block", "lrce_tpu_torch/csrc/swin_block.cu",
            "lrce_tpu/ops/pallas_swin_block.py:180"),
@@ -2312,6 +2541,7 @@ def main() -> int:
     ranks = phase_ddp_ranks(card)
     two_cards = (phase_ddp_ranks(card, nccl=True)
                  if torch.cuda.device_count() >= 2 else None)
+    tools = phase_tools(card)
     print("[ddp] " + card + "; " + json.dumps({
         "train_ddp_nccl": {"ranks": torch.cuda.device_count(),
                            "train_wall_s": round(ddp["cli_train_s"], 2),
@@ -2361,7 +2591,12 @@ def main() -> int:
           f"{[round(t, 1) for t in cli['step_ms']]}, loader-wait share "
           f"after the lookahead {cli['steady_wait_share']:.4f}, loader busy "
           f"{cli['busy_ratio']:.4f} of a step, peak "
-          f"{cli['peak']:.2f} GiB; per call "
+          f"{cli['peak']:.2f} GiB; tools: 96-clip forward rel L2 "
+          f"{tools['forward96']['rel_l2']:.4g}, 3-clip "
+          f"{tools['forward3']['rel_l2']:.4g}, latency p50 / p90 "
+          f"{tools['latency_ms']['p50']:.2f} / "
+          f"{tools['latency_ms']['p90']:.2f} ms, walls s {tools['wall_s']}"
+          f"; per call "
           f"(kernel ms, plain ms, calls, bound ms) "
           f"{[(k, l, round(a, 4), round(b, 4), c, round(d, 4)) for k, l, a, b, c, d in per_call]}"
           f"; total {time.perf_counter() - t_start:.1f} s")

@@ -509,16 +509,19 @@ def test_frame_extracted_items_match_lrce_tpu(data_dir, scales):
 # ---------------------------------------------------------------------------
 
 def test_chip_smoke_gif_writer_decodes_to_the_frames_written(tmp_path):
-    """PIL decodes chip_smoke's GIFs (uncompressed LZW, a clear code every
-    254 literals) to exactly the palette colours written, as does the
-    port's native decoder; so phase_cli's byte check of the dataset's clips
+    """PIL decodes the GIFs of chip_smoke's dataset writer
+    (``tools/synth.py``: uncompressed LZW, a clear code every 254
+    literals) to exactly the palette colours written, as does the port's
+    native decoder; so phase_cli's byte check of the dataset's clips
     means something."""
     from PIL import Image
 
-    import chip_smoke as C
+    from lrce_tpu_torch.tools import synth
 
-    written = C.write_tgif_frameqa(str(tmp_path / "tgif"), seed=3)
-    assert len(written["gifs"]) == len(C.CLI_GIFS)
+    train_questions = 400
+    written = synth.write_tgif_frameqa(str(tmp_path / "tgif"), 3,
+                                       train_questions)
+    assert len(written["gifs"]) == len(synth.TGIF_GIFS)
     for name, (frames, palette) in written["gifs"].items():
         path = str(tmp_path / "tgif" / "gifs" / f"{name}.gif")
         im = Image.open(path)
@@ -540,7 +543,7 @@ def test_chip_smoke_gif_writer_decodes_to_the_frames_written(tmp_path):
         videos_path=str(tmp_path / "tgif/gifs"), temporal_scale=(3,),
         uint8_clips=True,
         tokenizer=PT.BertWordPieceTokenizer(written["vocab"]))
-    assert len(ds) == C.CLI_TRAIN_QUESTIONS
+    assert len(ds) == train_questions
     seen, checked = set(), set()
     for i in range(len(ds)):    # the first question on each GIF
         name = ds.label_file[i]["gif_name"]
