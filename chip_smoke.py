@@ -26,10 +26,15 @@ Phases, each raising on failure (the script then exits non-zero):
      the bias (+ mask) as an additive f32 mask (a yardstick: the port never
      calls it), per call and summed over the 46 calls of a train step, as
      one JSON line; one shape outside the CTA's range (N = 392) through K6
-     against plain, and a Swin stage at that window with grad mode on (the
-     plain block: K4 refuses N = 392) and off (K1 / K3), its launch counts
-     printed as one ``[route]`` line; and the LayerNorm (+ window gather)
-     alone at every stage (``ops/gemm.ln_rows``);
+     against plain; the 16-frame window (8, 7, 7), N = 392, which the
+     launcher gives the WMMA CTA, at every stage of a 48-clip step (its
+     48-clip output held to plain chunk by chunk of 12 / 24 / 48 / 48
+     clips, the output being per window), timed beside its bound and the
+     library's attention (rows with ``n`` 392 in the same JSON line); a
+     Swin stage at that window with grad mode on (K1 / K3 forward, K6 / K5
+     and K4's rows / columns pair backward) and off (K1 / K3), its launch
+     counts printed as one ``[route]`` line; and the LayerNorm (+ window
+     gather) alone at every stage (``ops/gemm.ln_rows``);
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      flagship shapes (bf16), at 6 clips (one request) and at the train
      step's 48: K1, K3, K2 (forward); K6 with and without the mask at
@@ -37,8 +42,15 @@ Phases, each raising on failure (the script then exits non-zero):
      each dW, db and drel); K7 at stage 3 (C = 1024) with and without dp2,
      and again at 3 clips (T = 441: a row tail past the 128-row tile, an
      odd sample count); K8 at stage 0 (C = 128) and at C = 256 without
-     autograd. K7 and K8 must launch one kernel a call (torch.profiler)
-     and give the same bits on a second call; the library's fc1 + fc2
+     autograd. K4 at the 16-frame window, N = 392 (its rows / columns pair):
+     every output at stages 0-3, shifted and not, at 6 and 48 clips (at
+     stages 0-1 the plain version runs the 48 clips in chunks of 12 / 24,
+     where its f32 (N, N) tensors fit: dy concatenated, the window sums
+     added), a second call bit-identical, the pair's two CTAs seen by the
+     profiler, its time beside its bound and the plain time (the measured
+     total of the chunk calls). K7 and
+     K8 must launch one kernel a call (torch.profiler) and give the same
+     bits on a second call; the library's fc1 + fc2
      (two ``torch.matmul``) is printed beside them. Max-abs and relative-L2
      error against the stated tolerance; kernel and plain time (CUDA
      events, after warm-up, order plain-kernel-kernel-plain) beside the
@@ -88,6 +100,13 @@ Phases, each raising on failure (the script then exits non-zero):
      ``ln_mlp=True``: K7 and its backward at stage 3) and on the plain
      route: loss and per-group gradient relative L2 (each Swin
      stage, BERT, the fusion) against the stated limit;
+  7b. frames16: the flagship at 16 frames (``frame_sample_size`` 16, the
+     window (8, 7, 7) unclamped, N = 392 at every stage): at 2 questions x 3
+     clips the kernel route against the plain route (loss, per-group
+     gradients, a request's logits, the limits of 7 and 4), then a warm-up
+     and 2 AgentOE steps at 16 questions x 3 clips on the kernel route, each
+     launching K1 11, K3 11, K2 2, K6 22, K5 22, K4 24; step ms, peak and the
+     card on one ``[frames16]`` line;
   8. cli: the file-based path through the command lines a user runs. A
      TGIF-frameqa directory made from a seed in a temporary directory (8
      GIFs of 12-40 frames written by ``tools/synth.write_gif`` without an
@@ -131,7 +150,9 @@ Phases, each raising on failure (the script then exits non-zero):
      full width, iteration counts cut (``phase_tools``): first the forward
      at 32 questions x 3 clips (96 clips, bench.py's inputs) and at 1 x 3
      clips on the kernel route, K1 11, K3 11, K2 2 launches each and no
-     other kernel, held to the plain route as in 4; then preflight,
+     other kernel, held to the plain route as in 4; then bench (bench.py's
+     program: one JSON line, clips/s of the 96-clip forward over 20
+     forwards), preflight,
      profile --latency (20 requests, K1 / K3 / K2 counted on each),
      stage_bench (48 clips, K7 on stage 3), train_bench (batch 16, K7),
      e2e_eval_bench (64 questions of the synthetic sanity set, batch 32),
@@ -147,7 +168,10 @@ Phases, each raising on failure (the script then exits non-zero):
 In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
 6-clip request (K1, K3, K2, K7; one call for K8) or the backward of one
 6-clip step (K6, K5, K4) makes; ``clips48`` holds the same three sums over
-the calls of one 48-clip train step. bound_ms is the larger of the call's
+the calls of one 48-clip train step; K4's ``clips6_n392`` and
+``clips48_n392`` the same at 16 frames (N = 392), with the clips of each
+call of each stage's plain version (``plain_chunk``: its time is the sum
+of those calls over all the clips). bound_ms is the larger of the call's
 operations over 989 TFLOP/s (dense bf16) and its bytes (each input read
 once, each output written once) over 3.35 TB/s, the H100 SXM's published
 peaks. library_ms is null: no single PyTorch call computes any of these
@@ -206,6 +230,20 @@ STAGES = (  # (D, H, W, C, heads) per stage at 224 x 224, 5 frames
 WINDOW = (3, 7, 7)
 SHIFT = (0, 3, 3)
 NO_SHIFT = (0, 0, 0)
+# 16-frame clips: the window (8, 7, 7) unclamped, N = 392 at every stage,
+# stages 0-2 shifted by (0, 3, 3) in every other block (K4's rows / columns
+# pair in the backward, the forward's WMMA CTA)
+STAGES16 = (
+    (8, 56, 56, 128, 4), (8, 28, 28, 256, 8), (8, 14, 14, 512, 16),
+    (8, 7, 7, 1024, 32))
+WINDOW16 = (8, 7, 7)
+# clips a call of each stage's plain K4 / attention takes when a step's 48
+# do not fit in one: one f32 (N, N) tensor of every window-head of stage 0
+# at 48 clips is 12,288 x 0.61 MB = 7.5 GB; the plain version then runs
+# the 48 clips in chunks of this many
+N392_PLAIN_CLIPS = (12, 24, 48, 48)
+FRAMES16_BATCH = 16         # questions of the 16-frame train steps
+FRAMES16_STEPS = 2
 CALLS_PER_FORWARD = {"K1": (1, 1, 9, 0), "K3": (1, 1, 9, 0),
                      "K2": (0, 0, 0, 2),
                      # K1 / K3's one-launch back half, at stages 0-1
@@ -362,18 +400,18 @@ def _compare(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def _work(kernel: str, clips: int, stage: int, masked: bool = False,
-          with_dp: bool = False):
-    """(operations, bytes) of one call at a flagship stage: every matrix
-    product at 2 m n k, each input read once and each output written once
-    (bf16 activations and matrices, f32 LN parameters, biases, rel_bias,
-    mask, dp and weight gradients)."""
-    d, h, w, c, heads = STAGES[stage]
-    n = WINDOW[0] * WINDOW[1] * WINDOW[2]
+          with_dp: bool = False, stages=STAGES, window=WINDOW):
+    """(operations, bytes) of one call at a flagship stage (of ``stages``,
+    windows ``window``): every matrix product at 2 m n k, each input read
+    once and each output written once (bf16 activations and matrices, f32
+    LN parameters, biases, rel_bias, mask, dp and weight gradients)."""
+    d, h, w, c, heads = stages[stage]
+    n = window[0] * window[1] * window[2]
     t = clips * d * h * w
     ff = 4 * c
     act = t * c * 2
     rel = heads * n * n * 4
-    mask = (d // WINDOW[0]) * (h // WINDOW[1]) * (w // WINDOW[2]) * n * n * 4 \
+    mask = (d // window[0]) * (h // window[1]) * (w // window[2]) * n * n * 4 \
         if masked else 0
     attn_w = 4 * c * c * 2 + (3 * c + c + 2 * c) * 4    # qkv, proj, biases, LN1
     mlp_w = 2 * c * ff * 2 + (2 * c + ff + c) * 4       # fc1, fc2, LN2, biases
@@ -421,11 +459,13 @@ def _one_launch_checks(checks) -> None:
 
     All the calls run in one profiled region, each after a marker kernel
     (``torch.cuda._sleep``'s ``spin_kernel``, found by its name) and a
-    synchronize; the kernels between two markers are one call's. A capture
-    with fewer markers than calls lost events (torch.profiler has returned
-    no CUDA events for a region late in a long process) and is taken
-    again, up to PROFILE_TRIES times; if none holds every marker, the
-    check fails."""
+    synchronize; the kernels between two markers are one call's. The
+    region opens with another kernel, so that the capture is running
+    before the first marker (a capture can miss its first kernel). A
+    capture with fewer markers than calls lost events (torch.profiler has
+    returned no CUDA events for a region late in a long process) and is
+    taken again, up to PROFILE_TRIES times; if none holds every marker,
+    the check fails."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -433,6 +473,8 @@ def _one_launch_checks(checks) -> None:
         for _ in range(PROFILE_TRIES):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
                 agains = []
                 for _, run in checks:
                     torch.cuda._sleep(1000)
@@ -447,7 +489,8 @@ def _one_launch_checks(checks) -> None:
                 break
     require(len(marks) == len(checks), f"one launch a call: the profiler "
             f"caught {len(marks)} of {len(checks)} markers in "
-            f"{PROFILE_TRIES} captures")
+            f"{PROFILE_TRIES} captures; the last: "
+            f"{[e.name[:40] for e in events]}")
     for (name, _), first, again, lo, hi in zip(
             checks, firsts, agains, marks, marks[1:] + [len(events)]):
         kernels = [e.name for e in events[lo + 1:hi]]
@@ -662,7 +705,7 @@ def phase_attn_core():
         tot = sums.setdefault(clips, [0.0, 0.0, 0.0])
         for i, val in enumerate((ms, bound, lib)):
             tot[i] += calls * val
-        out.append({"clips": clips, "stage": stage, "masked": masked,
+        out.append({"n": n, "clips": clips, "stage": stage, "masked": masked,
                     "max_abs_err": err, "ms": ms, "bound_ms": bound,
                     "bound_by": by, "library_ms": lib,
                     "calls_per_step": calls})
@@ -686,8 +729,10 @@ def phase_attn_core():
           window, heads, 1e-5, shift)
     _compare(f"K6 beyond the CTA's range, window {window} (N {n_big})",
              WA.fused_window_attention(*k6), WA.window_attention_plain(*k6))
-    # the same geometry through a Swin stage: with grad mode on it trains on
-    # the plain block (K4 refuses N = 392), with it off it runs the kernels
+    out += _attn_core_n392(gen)
+    # the same geometry through a Swin stage: with grad mode on and off it
+    # runs K1 / K3, and with grad K6 / K5 and K4 (its rows / columns pair)
+    # in the backward
     from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
                                               SwinConfig)
 
@@ -705,13 +750,94 @@ def phase_attn_core():
           f"takes it {WA.attn_bwd_supported(n_big, c // heads)}; launches, "
           f"forward + backward with grad {with_grad}, forward without grad "
           f"{without}", flush=True)
-    require(all(v == 0 for v in with_grad.values()) and xs.grad is not None,
-            "a stage at N = 392 launched a kernel with grad mode on")
+    want = {"K1": 1, "K3": 1, "K6": 2, "K5": 2, "K4": 2}
+    require(all(with_grad[k] == v for k, v in want.items())
+            and xs.grad is not None and bool(torch.isfinite(xs.grad).all()),
+            f"a stage at N = 392 with grad mode on launched {with_grad}, "
+            f"expected {want}")
     require(without["K1"] == 1 and without["K3"] == 1,
             "a stage at N = 392 did not run K1 / K3 without grad")
     del layer, xs
     print(json.dumps({"attn_core": out}), flush=True)
     return out, ln_ms
+
+
+def _attn_core_n392(gen):
+    """The attention-forward CTA at the 16-frame window (8, 7, 7), N = 392,
+    which the launcher gives the WMMA CTA: at every stage of a 48-clip step
+    (masked and not at stages 0-2), its 48-clip output held to the plain
+    version chunk by chunk of N392_PLAIN_CLIPS clips (the output is per
+    window), timed at 48 clips between two timings of the library's
+    attention, with its bound. Returns attn_core rows (``n`` 392)."""
+    import torch.nn.functional as F
+
+    from lrce_tpu_torch.models.swin3d import compute_shift_mask
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    dgen = torch.Generator(device="cuda").manual_seed(393)
+    n = WINDOW16[0] * WINDOW16[1] * WINDOW16[2]
+    clips, rows, total = TRAIN_CLIPS, [], [0.0, 0.0, 0.0]
+    for stage, (d, h, w, c, heads) in enumerate(STAGES16):
+        nwin_clip = (d // WINDOW16[0]) * (h // WINDOW16[1]) * (w // WINDOW16[2])
+        nwin, hd = clips * nwin_clip, c // heads
+        pc = N392_PLAIN_CLIPS[stage]
+        qkv = _device_seeded((nwin, n, 3 * c), dgen)
+        rel = torch.randn((heads, n, n), generator=gen).cuda()
+        q, k, v = (a.contiguous() for a in qkv.reshape(
+            nwin, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
+        for masked in ((False, True) if stage < 3 else (False,)):
+            mask, lq, lk, lv, add = None, q, k, v, rel[None]
+            if masked:
+                mask = torch.from_numpy(compute_shift_mask(
+                    (d, h, w), WINDOW16, SHIFT)).cuda()
+                lq, lk, lv = (a.reshape(clips, nwin_clip * heads, n, hd)
+                              for a in (q, k, v))
+                add = (rel[None] + mask[:, None]).reshape(
+                    1, nwin_clip * heads, n, n)
+            label = (f"attn_core N 392 stage {stage}, {clips} clips, "
+                     f"{'masked' if masked else 'unmasked'} ({nwin} windows x "
+                     f"{heads} heads, head_dim {hd}, the WMMA CTA)")
+            got, err = WA.window_attention_core(qkv, rel, mask, heads), 0.0
+            for first in range(0, clips, pc):
+                win = slice(first * nwin_clip, (first + pc) * nwin_clip)
+                err = max(err, _compare(
+                    label + f" (clips {first}-{first + pc - 1})", got[win],
+                    WA.window_attention_core_plain(qkv[win], rel, mask,
+                                                   heads)))
+            del got
+
+            def run_lib():
+                return F.scaled_dot_product_attention(lq, lk, lv,
+                                                      attn_mask=add)
+
+            def run_k():
+                return WA.window_attention_core(qkv, rel, mask, heads)
+
+            lib, k1, k2, lib2 = (_cuda_time_ms(f, 5) for f in (
+                run_lib, run_k, run_k, run_lib))
+            t = nwin * n
+            work = (4 * t * n * c, 2 * t * 4 * c + heads * n * n * 4
+                    + (nwin_clip * n * n * 4 if masked else 0))
+            bound, by = _bound_ms(work)
+            calls = ATTN_CORE_CALLS[stage] // (2 if stage < 3 else 1)
+            ms, lib = (k1 + k2) / 2, (lib + lib2) / 2
+            for i, val in enumerate((ms, bound, lib)):
+                total[i] += calls * val
+            print(f"[attn_core] {label}: kernel {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}: {work[0] / 1e9:.3f} GFLOP, "
+                  f"{work[1] / 1e6:.3f} MB), library {lib:.4f} ms; {calls} "
+                  "call(s) a step", flush=True)
+            rows.append({"n": n, "clips": clips, "stage": stage,
+                         "masked": masked, "max_abs_err": err, "ms": ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": lib, "calls_per_step": calls})
+            del mask, add, lq, lk, lv
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    print(f"[attn_core] N = 392, the {sum(ATTN_CORE_CALLS)} calls of one "
+          f"{clips}-clip step of 16 frames: kernel {total[0]:.4f} ms, bound "
+          f"{total[1]:.4f} ms, library {total[2]:.4f} ms", flush=True)
+    return rows
 
 
 def phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms):
@@ -722,7 +848,8 @@ def phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms):
     allocations and, for K6 and K2, the cheaper proj epilogue (the proj timed
     alone is K1's, with dp1 and the residual)."""
     gemm = {(g["name"], g["clips"], g["stage"]): g for g in gemms}
-    cta = {(a["clips"], a["stage"], a["masked"]): a["ms"] for a in attn_rows}
+    cta = {(a["clips"], a["stage"], a["masked"]): a["ms"] for a in attn_rows
+           if a["n"] == WINDOW[0] * WINDOW[1] * WINDOW[2]}
     out = []
     for (kernel, clips, stage, masked), total in sorted(call_ms.items()):
         fused = (kernel in ("K1", "K3")
@@ -985,6 +1112,9 @@ def phase_kernels():
                        _work("K3", clips, stage, True, True))
             del x, g
             torch.cuda.empty_cache()
+    n392 = _k4_n392(gen)
+    by_clips[N_CLIPS]["K4"]["max_abs_err"] = max(
+        by_clips[N_CLIPS]["K4"]["max_abs_err"], n392.pop("max_abs_err"))
     # the other clip counts the tools give K1 / K3 / K2 (phase_tools), each
     # held to its plain version outside the step's totals
     for clips in TOOLS_CLIPS:
@@ -1059,7 +1189,140 @@ def phase_kernels():
                                by_clips[TRAIN_CLIPS][k]["max_abs_err"])
     require(SB.swin_back_half.launches > 0, "the back half never launched")
     return (by_clips[N_CLIPS], by_clips[TRAIN_CLIPS], per_call, call_ms,
-            back_half_ms)
+            back_half_ms, n392)
+
+
+def _device_seeded(shape, gen, scale=1.0):
+    """bf16 normal values drawn on the card (a step's 48 clips of 16 frames
+    are 154 M values at stage 0: drawn on the host they take seconds)."""
+    return (scale * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+
+
+def _pair_launched(run) -> None:
+    """One call of ``run`` (K4 at N > 160) launches the rows and the columns
+    CTA of the pair, and no capture holds attn_bwd_kernel (torch.profiler; a
+    capture that lost events, even some of one call's, is taken again, up to
+    PROFILE_TRIES captures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)     # the capture is running before run()
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append(sorted(set(n[:60] for n in names)))
+        pair = {k: any(k + "<" in n for n in names)
+                for k in ("attn_bwd_rows_kernel", "attn_bwd_cols_kernel",
+                          "attn_bwd_kernel")}
+        require(not pair["attn_bwd_kernel"],
+                f"K4 at N = 392 launched attn_bwd_kernel: {seen[-1]}")
+        if pair["attn_bwd_rows_kernel"] and pair["attn_bwd_cols_kernel"]:
+            return
+    require(False, f"K4 at N = 392: no capture of {PROFILE_TRIES} held both "
+            f"CTAs of the pair: {seen}")
+
+
+def _k4_plain_in_chunks(k4, clips: int):
+    """K4's plain version over the clips of ``k4`` in calls of ``clips``
+    clips each: dy concatenated, the window-summed outputs (dqkv_w, dqkv_b,
+    dproj_w, drel) added in f32."""
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    x, g, rest = k4[0], k4[1], k4[2:]
+    dys, sums = [], None
+    for first in range(0, x.shape[0], clips):
+        dy, *part = WA.window_attention_bwd_plain(
+            x[first:first + clips], g[first:first + clips], *rest)
+        dys.append(dy)
+        sums = part if sums is None else [a + b for a, b in zip(sums, part)]
+    return (torch.cat(dys), *sums)
+
+
+def _k4_n392(gen):
+    """K4 at the 16-frame window (8, 7, 7), N = 392, the rows / columns
+    pair: every output against the plain version at every stage (shifted
+    and not at stages 0-2), at 6 clips (a request) and 48 (a train step;
+    at stages 0-1 the plain version runs in chunks of N392_PLAIN_CLIPS' 12 /
+    24 clips, where it fits: ``_k4_plain_in_chunks``), a second call
+    bit-identical, the pair's two CTAs seen by the profiler; kernel time,
+    plain time (all the chunk calls) and the bound at the step's clips,
+    summed over the 24 calls of a step. Returns {clips: sums} and the
+    largest error."""
+    from lrce_tpu_torch.models.swin3d import compute_shift_mask
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    dgen = torch.Generator(device="cuda").manual_seed(392)
+    n = WINDOW16[0] * WINDOW16[1] * WINDOW16[2]
+    out, worst = {}, 0.0
+    for clips in (N_CLIPS, TRAIN_CLIPS):
+        sums = out[clips] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                             "plain_chunk": []}
+        for stage, (d, h, w, c, heads) in enumerate(STAGES16):
+            x = _device_seeded((clips, d, h, w, c), dgen)
+            g = _device_seeded((clips, d, h, w, c), dgen)
+            p = _block_weights(c, heads, n, gen, None)
+            bwd = [p[k] for k in ("ln1s", "ln1b", "qkv_w", "qkv_b",
+                                  "proj_w", "rel_bias")]
+            nwin = (d // WINDOW16[0], h // WINDOW16[1], w // WINDOW16[2])
+            mask = torch.from_numpy(compute_shift_mask(
+                (d, h, w), WINDOW16, SHIFT)).reshape(*nwin, n, n).cuda()
+            pc = min(clips, N392_PLAIN_CLIPS[stage])
+            sums["plain_chunk"].append(pc)
+            kinds = (False, True) if stage < 3 else (False,)
+            for masked in kinds:
+                m, s = (mask, SHIFT) if masked else (None, NO_SHIFT)
+                k4 = (x, g, *bwd, m, WINDOW16, heads, 1e-5, s)
+                label = (f"K4 N 392 stage {stage} ({clips}, {d}, {h}, {w}, "
+                         f"{c}) {'masked' if masked else 'unmasked'}")
+                got = WA.window_attention_bwd(*k4)
+                again = WA.window_attention_bwd(*k4)
+                require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                        f"{label}: a second call differs")
+                del again
+                want = _k4_plain_in_chunks(k4, pc)
+                for i, (a, b) in enumerate(zip(got, want)):
+                    worst = max(worst, _compare(
+                        f"{label} out{i}" + (f" (plain in chunks of {pc} "
+                                             "clips)" if pc < clips else ""),
+                        a, b))
+                del got, want
+                if clips == N_CLIPS:
+                    _pair_launched(lambda: WA.window_attention_bwd(*k4))
+                it_k, it_p = (5, 2) if clips == TRAIN_CLIPS else (4, 4)
+                p1, k1, k2, p2 = (_cuda_time_ms(f, i) for f, i in (
+                    (lambda: _k4_plain_in_chunks(k4, pc), it_p),
+                    (lambda: WA.window_attention_bwd(*k4), it_k),
+                    (lambda: WA.window_attention_bwd(*k4), it_k),
+                    (lambda: _k4_plain_in_chunks(k4, pc), it_p)))
+                tk, tp = (k1 + k2) / 2, (p1 + p2) / 2
+                work = _work("K4", clips, stage, masked, stages=STAGES16,
+                             window=WINDOW16)
+                bound, by = _bound_ms(work)
+                calls = CALLS_PER_BACKWARD["K4"][stage] // len(kinds)
+                for key, v in (("ms", tk), ("plain_ms", tp),
+                               ("bound_ms", bound)):
+                    sums[key] += calls * v
+                print(f"[kernels] {label}: kernel {tk:.4f} ms, plain "
+                      f"{tp:.4f} ms" + (f" ({clips // pc} calls of {pc} "
+                                        "clips)" if pc < clips else "")
+                      + f", bound {bound:.4f} ms ({by}: {work[0] / 1e9:.3f} "
+                      f"GFLOP, {work[1] / 1e6:.3f} MB) per call; {calls} "
+                      "call(s) a step", flush=True)
+                del k4
+            del x, g, mask
+            torch.cuda.empty_cache()
+        print(f"[kernels] K4 at N = 392, the 24 calls of one {clips}-clip "
+              f"step of 16 frames: kernel {sums['ms']:.4f} ms, plain "
+              f"{sums['plain_ms']:.4f} ms (each stage's plain calls of "
+              f"{sums['plain_chunk']} clips), bound "
+              f"{sums['bound_ms']:.4f} ms", flush=True)
+    out["max_abs_err"] = worst
+    return out
 
 
 def _grads(fn, x, leaves, g):
@@ -1289,8 +1552,9 @@ def phase_forward():
     return launches, lat_kernels, lat_plain, lat_on, lat_off
 
 
-def _train_batch(rng, questions: int):
-    clips = rng.integers(0, 256, (questions, 3, 5, 224, 224, 3), dtype=np.uint8)
+def _train_batch(rng, questions: int, frames: int = 5):
+    clips = rng.integers(0, 256, (questions, 3, frames, 224, 224, 3),
+                         dtype=np.uint8)
     ids = rng.integers(1000, 30000, (questions, 32))
     mask = np.ones((questions, 32), np.int64)
     mask[::2, 24:] = 0
@@ -1299,21 +1563,58 @@ def _train_batch(rng, questions: int):
     return clips, ids, mask, types, gt
 
 
-def _flagship_train_model(ln_mlp: bool = False, seed: int = 0):
+def _flagship_train_model(ln_mlp: bool = False, seed: int = 0,
+                          frames: int = 5):
     from lrce_tpu_torch.models.e2e import E2EConfig, LRCEModel
 
-    cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32)
+    cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32,
+                    frame_sample_size=frames)
     return LRCEModel(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(seed),
                      ln_mlp=ln_mlp)
 
 
+def _probes(model) -> dict:
+    """A weight of each parameter group, to see a train step move it."""
+    return {"fusion_model": model.fusion_model.final_fc.weight,
+            "text_extractor":
+                model.text_extractor.bert.encoder.layer[0].intermediate.dense.weight,
+            "video_extractor":
+                model.video_extractor.swin.layers[0].blocks[0].attn.qkv.weight}
+
+
+def _counted_step(agent, batch, per_step: dict, probes: dict):
+    """One ``agent.step`` on the card: a finite loss, ``per_step``'s
+    launches exactly, every probe moved. Returns (loss, host ms, counts)."""
+    before = {k: p.detach().clone() for k, p in probes.items()}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    loss, m0, m1 = agent.step(*batch, is_train=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts = _counts()
+    require(math.isfinite(loss), f"non-finite loss {loss}")
+    for k, n in per_step.items():
+        require(counts[k] == n, f"{k} launched {counts[k]} times in a train "
+                f"step, expected {n}")
+    for k, p in probes.items():
+        require(not torch.equal(before[k], p.detach()),
+                f"a train step left {k}'s parameters unchanged")
+    return loss, ms, counts
+
+
+def _train_per_step() -> dict:
+    """Launches of one train step on the kernel route (``ln_mlp`` off)."""
+    return {"K7": 0, "K8": 0,
+            **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
+                                      **CALLS_PER_BACKWARD}.items()}}
+
+
 def phase_train():
     from lrce_tpu_torch.train.agent import AgentOE, default_args
 
-    per_step = {"K7": 0, "K8": 0,
-                **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
-                                          **CALLS_PER_BACKWARD}.items()}}
+    per_step = _train_per_step()
     model = _flagship_train_model()
     agent = AgentOE(model, default_args(), log_enabled=False, seed=0)
     print(f"[train] flagship, f32 parameters, bf16 compute; lr {agent.lrs}, "
@@ -1321,29 +1622,10 @@ def phase_train():
           f"drop-path {model.cfg.swin.drop_path_rate}", flush=True)
     rng = np.random.default_rng(7)
     batches = [_train_batch(rng, TRAIN_BATCH) for _ in range(TRAIN_STEPS + 1)]
-    probes = {"fusion_model": model.fusion_model.final_fc.weight,
-              "text_extractor":
-                  model.text_extractor.bert.encoder.layer[0].intermediate.dense.weight,
-              "video_extractor":
-                  model.video_extractor.swin.layers[0].blocks[0].attn.qkv.weight}
+    probes = _probes(model)
 
     def one_step(batch):
-        before = {k: p.detach().clone() for k, p in probes.items()}
-        torch.cuda.synchronize()
-        _reset_counts()
-        t = time.perf_counter()
-        loss, m0, m1 = agent.step(*batch, is_train=True)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        counts = _counts()
-        require(math.isfinite(loss), f"non-finite loss {loss}")
-        for k, n in per_step.items():
-            require(counts[k] == n, f"{k} launched {counts[k]} times in a train "
-                    f"step, expected {n}")
-        for k, p in probes.items():
-            require(not torch.equal(before[k], p.detach()),
-                    f"a train step left {k}'s parameters unchanged")
-        return loss, ms, counts
+        return _counted_step(agent, batch, per_step, probes)
 
     loss, ms, _ = one_step(batches[0])
     print(f"[train] warm-up step: loss {loss:.5f}, {ms:.1f} ms", flush=True)
@@ -1526,22 +1808,18 @@ def phase_training_run():
     return totals, step_ms, wall, peak
 
 
-def phase_route_parity():
-    """One forward + backward, kernel route (the stage-3 MLP through K7,
-    ``ln_mlp=True``) vs plain route, dropout and drop-path off
-    (training=False, grad enabled), the task loss's gradients per group."""
+def _route_parity(model, batch, tag: str) -> float:
+    """One forward + backward of ``model`` on ``batch`` (dropout and
+    drop-path off: training=False, grad enabled) on the kernel route and on
+    the plain route: the task loss (TRAIN_LOSS_REL) and its gradients per
+    group (each Swin stage, BERT, the fusion; TRAIN_GRAD_REL_L2). Returns
+    the worst gradient relative L2."""
     from lrce_tpu_torch.models.e2e import e2e_apply
     from lrce_tpu_torch.train import losses as L
 
-    model = _flagship_train_model(ln_mlp=True)
-    batch = [torch.from_numpy(a).cuda()
-             for a in _train_batch(np.random.default_rng(11), 2)]
-
-    def groups():
-        out = {f"swin stage {i}": f"video_extractor.swin.layers.{i}."
-               for i in range(4)}
-        out.update({"bert": "text_extractor.", "fusion": "fusion_model."})
-        return out
+    groups = {f"swin stage {i}": f"video_extractor.swin.layers.{i}."
+              for i in range(4)}
+    groups.update({"bert": "text_extractor.", "fusion": "fusion_model."})
 
     def grads(use_kernels):
         model.video_extractor.swin.use_kernels = use_kernels
@@ -1550,7 +1828,7 @@ def phase_route_parity():
         loss.backward()
         named = dict(model.named_parameters())
         flat = {}
-        for label, pre in groups().items():
+        for label, pre in groups.items():
             flat[label] = torch.cat([p.grad.float().reshape(-1)
                                      for n, p in named.items()
                                      if n.startswith(pre) and p.grad is not None])
@@ -1558,25 +1836,96 @@ def phase_route_parity():
 
     lk, gk = grads(True)
     lp, gp = grads(False)
+    model.video_extractor.swin.use_kernels = True
+    model.zero_grad(set_to_none=True)
     rel_loss = abs(lk - lp) / abs(lp)
-    print(f"[parity] loss kernel route {lk:.6f}, plain route {lp:.6f}, "
+    print(f"{tag} loss kernel route {lk:.6f}, plain route {lp:.6f}, "
           f"relative difference {rel_loss:.3g} (limit {TRAIN_LOSS_REL})",
           flush=True)
     require(math.isfinite(lk) and rel_loss <= TRAIN_LOSS_REL,
-            "kernel-route loss disagrees with the plain route")
+            f"{tag} kernel-route loss disagrees with the plain route")
     worst = 0.0
-    for label in groups():
+    for label in groups:
         a, b = gk[label], gp[label]
         require(bool(torch.isfinite(a).all()), f"{label}: non-finite gradient")
         rel = ((a - b).norm() / b.norm()).item()
         worst = max(worst, rel)
-        print(f"[parity] {label}: gradient relative L2 {rel:.4g} (limit "
+        print(f"{tag} {label}: gradient relative L2 {rel:.4g} (limit "
               f"{TRAIN_GRAD_REL_L2}), |grad| {b.norm().item():.4g}", flush=True)
         require(rel <= TRAIN_GRAD_REL_L2,
-                f"{label}: kernel-route gradients disagree with the plain route")
+                f"{tag} {label}: kernel-route gradients disagree with the "
+                "plain route")
+    return worst
+
+
+def phase_route_parity():
+    """One forward + backward, kernel route (the stage-3 MLP through K7,
+    ``ln_mlp=True``) vs plain route, dropout and drop-path off
+    (training=False, grad enabled), the task loss's gradients per group."""
+    model = _flagship_train_model(ln_mlp=True)
+    batch = [torch.from_numpy(a).cuda()
+             for a in _train_batch(np.random.default_rng(11), 2)]
+    worst = _route_parity(model, batch, "[parity]")
     del model
     torch.cuda.empty_cache()
     return worst
+
+
+def phase_frames16(card: str):
+    """16-frame clips through the flagship's training path (f32 parameters,
+    bf16 compute; ``frame_sample_size`` 16, as a config JSON sets it): the
+    window (8, 7, 7), N = 392 at every stage, trains on K1 / K3 / K2 with
+    K6 / K5 / K4 (its rows / columns pair) in the backward. At 2 questions x
+    3 clips the kernel route against the plain route (``_route_parity``: the
+    loss 1e-2, per-group gradients 1e-1) and a request's logits
+    (FORWARD_REL_L2); then AgentOE (the config defaults) takes a warm-up and
+    FRAMES16_STEPS steps at 16 questions x 3 clips on the kernel route
+    alone, each with a train step's launches (K4 24): the plain route keeps
+    f32 (N, N) scores of every window-head, ~58 GB for one saved tensor at
+    48 clips. One ``[frames16]`` line: parity, step ms, peak, the card."""
+    from lrce_tpu_torch.models.e2e import e2e_forward
+    from lrce_tpu_torch.train.agent import AgentOE, default_args
+
+    t0 = time.perf_counter()
+    model = _flagship_train_model(frames=16)
+    rng = np.random.default_rng(16)
+    batch = [torch.from_numpy(a).cuda() for a in _train_batch(rng, 2, 16)]
+    worst = _route_parity(model, batch, "[frames16]")
+    with torch.no_grad():
+        out = e2e_forward(model, *batch[:4])
+        model.video_extractor.swin.use_kernels = False
+        ref = e2e_forward(model, *batch[:4])
+        model.video_extractor.swin.use_kernels = True
+    logits_rel = _hold_to_plain(out, ref, (2, 1000),
+                                "[frames16] request logits vs plain route")
+    del out, ref, batch
+
+    per_step = _train_per_step()
+    agent = AgentOE(model, default_args(), log_enabled=False, seed=0)
+    batches = [_train_batch(rng, FRAMES16_BATCH, 16)
+               for _ in range(FRAMES16_STEPS + 1)]
+    probes = _probes(model)
+    loss, ms, _ = _counted_step(agent, batches[0], per_step, probes)
+    print(f"[frames16] warm-up step: loss {loss:.5f}, {ms:.1f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for b in batches[1:]:
+        loss, ms, counts = _counted_step(agent, b, per_step, probes)
+        times.append(ms)
+        print(f"[frames16] step: loss {loss:.5f}, {ms:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report = {"parity_worst_grad_rel_l2": worst, "logits_rel_l2": logits_rel,
+              "step_ms": times, "peak_gib": peak, "launches": counts,
+              "wall_s": time.perf_counter() - t0}
+    print(f"[frames16] {card}; {FRAMES16_STEPS} steps of {FRAMES16_BATCH} "
+          f"questions x 3 clips x 16 frames: step ms "
+          f"{', '.join(f'{t:.1f}' for t in times)}, peak {peak:.2f} GiB, "
+          f"launches per step {counts}; route parity worst gradient rel L2 "
+          f"{worst:.4g}, logits rel L2 {logits_rel:.4g}; phase "
+          f"{report['wall_s']:.1f} s", flush=True)
+    del agent, model
+    torch.cuda.empty_cache()
+    return report
 
 
 def _cli_host_ms(dataset) -> dict:
@@ -2350,7 +2699,7 @@ def phase_tools(card: str):
     plain route. bench_ingest does not run here: it measures the host's
     .avi / .mp4 ingest of videos it writes with cv2, not the card. One
     ``[tools]`` line."""
-    from lrce_tpu_torch.tools import (common, e2e_eval_bench,
+    from lrce_tpu_torch.tools import (bench, common, e2e_eval_bench,
                                       extract_features, flops, graft_entry,
                                       parity_eval, preflight, profile,
                                       sanity_curve, stage_bench, synth,
@@ -2362,6 +2711,14 @@ def phase_tools(card: str):
     walls, report = {}, {}
     report["forward96"] = _tools_forward(preflight.BENCH_BATCH)
     report["forward3"] = _tools_forward(1)
+
+    _reset_counts()
+    line, text = _tool("bench", lambda: bench.main([]), walls)
+    _launched("bench", forward_kernels)
+    require(text.strip().splitlines() == [json.dumps(line)]
+            and line["metric"] == "clips_per_sec_per_gpu"
+            and line["value"] > 0, f"bench: printed {text!r}")
+    report["bench"] = line
 
     _reset_counts()
     rc, text = _tool("preflight", lambda: preflight.main([]), walls)
@@ -2529,13 +2886,15 @@ def main() -> int:
     lib = phase_build()
     gemms = phase_gemms()
     attn_rows, ln_ms = phase_attn_core()
-    results, results48, per_call, call_ms, back_half_ms = phase_kernels()
+    (results, results48, per_call, call_ms, back_half_ms,
+     n392) = phase_kernels()
     phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms)
     phase_function_grads()
     fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
     train_launches, step_ms, peak = phase_train()
     run_launches, run_step_ms, run_wall, run_peak = phase_training_run()
     worst = phase_route_parity()
+    frames16 = phase_frames16(card)
     cli = phase_cli(card)
     ddp = phase_ddp(card)
     ranks = phase_ddp_ranks(card)
@@ -2581,12 +2940,22 @@ def main() -> int:
             "library_ms": None,
             "clips48": {key: results48[k][key]
                         for key in ("ms", "plain_ms", "bound_ms")}})
+        if k == "K4":
+            # the same sums at the 16-frame window, N = 392 (the pair)
+            for clips, key in ((N_CLIPS, "clips6_n392"),
+                               (TRAIN_CLIPS, "clips48_n392")):
+                kernels[-1][key] = n392[clips]
     print(f"[summary] {card}; build {lib.build_seconds:.1f} s; request "
           f"latency ms kernel route {lat_k}, plain route {lat_p}, with K7 "
           f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "
           f"{TRAIN_CLIPS} clips, peak {peak:.2f} GiB; training run "
           f"{run_wall:.2f} s, step ms {run_step_ms}, peak {run_peak:.2f} GiB; "
-          f"route parity worst gradient rel L2 {worst:.4g}; CLIs: train "
+          f"route parity worst gradient rel L2 {worst:.4g}; 16 frames: "
+          f"step ms {[round(t, 1) for t in frames16['step_ms']]} at "
+          f"{FRAMES16_BATCH * 3} clips, peak {frames16['peak_gib']:.2f} GiB, "
+          f"K4 at N = 392 {n392[TRAIN_CLIPS]['ms']:.2f} ms a step (bound "
+          f"{n392[TRAIN_CLIPS]['bound_ms']:.2f}); bench "
+          f"{tools['bench']['value']} clips/s; CLIs: train "
           f"{cli['train_s']:.2f} s, eval {cli['eval_s']:.2f} s, step ms "
           f"{[round(t, 1) for t in cli['step_ms']]}, loader-wait share "
           f"after the lookahead {cli['steady_wait_share']:.4f}, loader busy "

@@ -53,6 +53,45 @@
 // The pieces are separate launches (LN + gather, qkv GEMM, dctx GEMM, the
 // attention CTA, split-K GEMMs, dy GEMM) and the recomputed qkv and ctx are
 // stored; keeping them on chip is later work.
+//
+// Windows of 161-400 tokens (16-frame clips: the window (8, 7, 7), N = 392
+// at every stage) take a pair of CTAs instead, because attn_bwd_kernel keeps
+// a window's whole P and dS in shared memory (2 x 400 x 408 x 2 bytes at
+// N = 392, three times the 227 KB there is) and a warp's S and drel for 400
+// keys in registers (400 a thread, past the 255 cap). Nothing of size N x N
+// stays on chip here; both CTAs stream over 16-wide blocks of the other
+// side, with a runtime block count: no register array is indexed by it, so
+// the loop body is the same for any N (the 26% that a runtime count cost
+// attn_fwd_kernel came from register arrays sized by it).
+//   - attn_bwd_rows_kernel, a CTA per (window group, head, 80 query rows),
+//     a warp per 16 rows; k and v of the whole window in shared memory. A
+//     first pass over the keys forms S and dP = dctx v^T 16 keys at a time
+//     and keeps an online max, sum and sum of exp(S - max) dP per row, so
+//     that P = exp(S - m) / l and rowsum(dP P) are known; it stores (m,
+//     1 / l, rowsum) per row for the second CTA. A second pass forms S and
+//     dP again, P and dS, and accumulates ctx = pb v and dq = bf16(dS) k
+//     straight from the accumulator registers (the m16n8 result of two key
+//     tiles is the m16k16 A operand of the next product), so P and dS never
+//     reach shared memory;
+//   - attn_bwd_cols_kernel, a CTA per (window group, head, 80 keys), a warp
+//     per 16 keys; q and dctx of the whole window and the row statistics in
+//     shared memory. For 16 queries at a time it forms S^T = k q^T and
+//     dP^T = v dctx^T, P^T and dS^T from the statistics, and accumulates
+//     dv = pb^T dctx and dk = bf16(dS)^T q. Its 80 keys' columns of drel
+//     (N x 80 f32, rows padded to 84 floats: conflict-free fragment adds)
+//     stay in shared memory across the windows it walks, each element owned
+//     by one thread, and leave once per CTA;
+//   - the bias gradient's partials are per (window group, 80-row block):
+//     the rows CTA writes the q columns, the columns CTA the k and v
+//     columns. All f32 sums run in a fixed order: no atomics, and two calls
+//     give the same bits;
+//   - the rel_bias (0.61 MB a head at N = 392) is read element by element
+//     from L2, once per (window, head) and pass; the shift mask by its
+//     region labels (Np ints a window, as attn_fwd.cu reads it): densely,
+//     a clip's 64 masks at stage 0 are 39 MB, read three times a window;
+//   - the pair does ten 16-row products per (window, head) where the
+//     ten-warp CTA does six (S and dP once more in each CTA): correctness
+//     first, speed is later work.
 #include "swin_common.cuh"
 
 #include "hopper.cuh"
@@ -66,11 +105,40 @@ namespace {
 
 constexpr int BW_MAX_NB = 20;     // key blocks of 8: up to 160 padded tokens
 constexpr int BW_MAX_WARPS = 10;  // one warp per 16 query rows
+// the rows / columns pair for windows of 161-400 tokens
+constexpr int BW_BIG_MAX_NP = 400;         // padded tokens
+constexpr int BL_WARPS = 5;                // a warp per 16 rows of a block
+constexpr int BL_ROWS = 16 * BL_WARPS;     // query rows or keys of a CTA
+constexpr int BL_DREL_LD = BL_ROWS + 4;    // floats a row of the drel slice
 
 size_t bwd_smem_bytes(int Np, int hd) {
   return (size_t)8 * Np * hd * sizeof(bf16) +          // q k v dctx, twice
          (size_t)2 * Np * (Np + 8) * sizeof(bf16) +    // bf16 P and dS
          (size_t)(Np / 16) * 3 * hd * sizeof(float);   // bias sums per warp
+}
+
+int big_blocks(int Np) { return (Np + BL_ROWS - 1) / BL_ROWS; }
+
+size_t rows_smem_bytes(int Np, int hd) {
+  return (size_t)2 * BL_ROWS * hd * sizeof(bf16) +   // q, dctx of the block
+         (size_t)2 * Np * hd * sizeof(bf16) +        // k, v of the window
+         (size_t)Np * sizeof(int) +                  // mask labels
+         (size_t)BL_WARPS * hd * sizeof(float);      // dq column sums
+}
+
+size_t cols_smem_bytes(int Np, int hd) {
+  return (size_t)2 * Np * hd * sizeof(bf16) +        // q, dctx of the window
+         (size_t)2 * BL_ROWS * hd * sizeof(bf16) +   // k, v of the block
+         (size_t)Np * sizeof(float4) +               // row statistics
+         (size_t)Np * sizeof(int) +                  // mask labels
+         (size_t)Np * BL_DREL_LD * sizeof(float) +   // drel slice
+         (size_t)BL_WARPS * 2 * hd * sizeof(float);  // dk, dv column sums
+}
+
+// Rows of the qkv-bias partials: one per window group for attn_bwd_kernel,
+// one per (window group, 80-row block) for the pair.
+long long bias_parts(int Np, int groups) {
+  return Np <= 8 * BW_MAX_NB ? groups : (long long)groups * big_blocks(Np);
 }
 
 // One CTA per (window group, head), one warp per 16 query rows; it walks
@@ -381,19 +449,519 @@ attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
   }
 }
 
+// Pre-scales the q rows [0, rows) of a swizzled head tile at `tile` (a
+// generic pointer) on their bf16 values: each thread the chunks that the
+// same loop over idx gave it to copy.
+template <int HD>
+__device__ __forceinline__ void scale_tile(unsigned char* tile, int rows,
+                                           float scale) {
+  constexpr int CH = HD / 8;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    uint4* p = reinterpret_cast<uint4*>(tile + tok_off<HD>(idx / CH,
+                                                           idx % CH));
+    uint4 v = *p;
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
+    *p = v;
+  }
+}
+
+// A warp's 16 x HD f32 accumulator (rows r_lo and r_lo + 8 of the window
+// for lane 4 g + t) times k: rows below N stored as bf16 at out + row * ld;
+// with sums, the column sums of the scaled f32 values added into sums[0,
+// HD) (rows at or past N hold zeros).
+template <int HD>
+__device__ __forceinline__ void store_rows(float (&acc)[HD / 8][4], float k,
+                                           bf16* out, long long ld, int r_lo,
+                                           int N, float* sums, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= k;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r_lo + hf * 8;
+      if (r < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + r * ld + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc[n][2 * hf], acc[n][2 * hf + 1]);
+    }
+    if (sums) {
+      float c0 = acc[n][0] + acc[n][2], c1 = acc[n][1] + acc[n][3];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+      }
+      if (g == 0) {
+        sums[8 * n + 2 * t] += c0;
+        sums[8 * n + 2 * t + 1] += c1;
+      }
+    }
+  }
+}
+
+// What window `win` adds to the logit of (query r, key c) besides the bias,
+// as attn_fwd.cu reads it: nothing; off where the two tokens' labels differ
+// (labels of the window in shared memory, off = mask_off[window], not NaN);
+// or the dense mask. The three give the same sums: a label form exists only
+// where it reproduces the dense mask exactly (ops/window_attn.
+// shift_mask_labels), and bias + 0 is the bias.
+struct MaskForm {
+  const float* dense;  // the window's (N, N) mask, or null
+  bool by_label;
+  float off;
+  __device__ __forceinline__ float value(const int* lab, int r, int c,
+                                         int N) const {
+    if (dense) return dense[(long long)r * N + c];
+    if (by_label) return lab[r] == lab[c] ? 0.f : off;
+    return 0.f;
+  }
+};
+
+__device__ __forceinline__ MaskForm mask_form(const float* mask,
+                                              const int* labels,
+                                              const float* mask_off,
+                                              long long win, int nwin_clip,
+                                              int N) {
+  MaskForm f = {nullptr, false, 0.f};
+  if (!mask) return f;
+  const int wc = (int)(win % nwin_clip);
+  if (labels) f.off = mask_off[wc];
+  if (!labels || isnan(f.off))
+    f.dense = mask + (long long)wc * N * N;
+  else
+    f.by_label = f.off != 0.f;
+  return f;
+}
+
+// The Np int32 labels of a window (Np a multiple of 16) into shared memory
+// at dst, by cp.async.
+__device__ __forceinline__ void load_labels(uint32_t dst, const int* src,
+                                            int Np) {
+  for (int i = threadIdx.x; i < Np / 4; i += blockDim.x)
+    cp_async16(dst + i * 16, src + 4 * i, true);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The rows CTA of the pair (see the note at the top): grid (groups, nH,
+// big_blocks(Np)), BL_WARPS warps. Writes ctx and the dq columns of dqkv
+// for its rows, (m, 1 / l, rowsum(dP P), 0) of every row below Np into
+// stats[(win * nH + h) * Np + row], and its dq column sums into row (grp *
+// blocks + blk) of pb.
+template <int HD>
+__global__ void __launch_bounds__(BL_WARPS * 32)
+attn_bwd_rows_kernel(const bf16* __restrict__ qkv,
+                     const bf16* __restrict__ dctx,
+                     const float* __restrict__ rel_bias,
+                     const float* __restrict__ mask,
+                     const int* __restrict__ labels,
+                     const float* __restrict__ mask_off,
+                     bf16* __restrict__ ctx,
+                     bf16* __restrict__ dqkv, float4* __restrict__ stats,
+                     float* __restrict__ pb, long long nwin_total,
+                     int nwin_clip, int N, int Np, int C, int groups,
+                     float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int CH = HD / 8;   // 16-byte chunks per row
+  constexpr int KS = HD / 16;  // k-steps over the head dim
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = blockIdx.x, h = blockIdx.y, blk = blockIdx.z;
+  const int nH = gridDim.y, nblk = gridDim.z;
+  const int row0 = blk * BL_ROWS;
+  const int own = BL_ROWS * HD * 2, full = Np * HD * 2;   // tile bytes
+  const uint32_t qs = smem_u32(smem), gs = qs + own, ks = gs + own,
+                 vs = ks + full, ls = vs + full;
+  const int* lab = reinterpret_cast<const int*>(smem + 2 * own + 2 * full);
+  float* wsum = reinterpret_cast<float*>(smem + 2 * own + 2 * full +
+                                         Np * sizeof(int));
+  for (int i = tid; i < BL_WARPS * HD; i += blockDim.x) wsum[i] = 0.f;
+
+  const float* bias_h = rel_bias + (long long)h * N * N;
+  const int r_lo = row0 + 16 * warp + g;   // this lane's rows: r_lo, r_lo + 8
+  const int a_row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_row = lane & 7, b_ch = (lane >> 3) & 1;
+  const int k_row = (lane & 7) + ((lane >> 3) & 1) * 8;  // B, trans
+  const bool active = row0 + 16 * warp < N;               // warp-uniform
+
+  for (long long win = grp; win < nwin_total; win += groups) {
+    const bf16* qrow = qkv + win * N * (3LL * C) + h * HD;
+    const bf16* grow = dctx + win * N * (long long)C + h * HD;
+    for (int idx = tid; idx < BL_ROWS * CH; idx += blockDim.x) {
+      const int r = idx / CH, c = idx % CH, tok = row0 + r;
+      const bool ok = tok < N;
+      const uint32_t dst = tok_off<HD>(r, c);
+      cp_async16(qs + dst, ok ? qrow + (long long)tok * 3 * C + c * 8 : qkv,
+                 ok);
+      cp_async16(gs + dst, ok ? grow + (long long)tok * C + c * 8 : dctx, ok);
+    }
+    for (int idx = tid; idx < Np * CH; idx += blockDim.x) {
+      const int tok = idx / CH, c = idx % CH;
+      const bool ok = tok < N;
+      const uint32_t dst = tok_off<HD>(tok, c);
+      const bf16* src = qrow + (long long)tok * 3 * C + c * 8;
+      cp_async16(ks + dst, ok ? src + C : qkv, ok);
+      cp_async16(vs + dst, ok ? src + 2 * C : qkv, ok);
+    }
+    const MaskForm mf = mask_form(mask, labels, mask_off, win, nwin_clip, N);
+    if (mf.by_label)
+      load_labels(ls, labels + (long long)(win % nwin_clip) * Np, Np);
+    cp_async_commit();
+    cp_async_wait<0>();
+    scale_tile<HD>(smem, BL_ROWS, scale);
+    __syncthreads();  // the window's tiles are complete
+
+    if (active) {
+      uint32_t aq[KS][4], ag[KS][4];
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        ldsm_x4(aq[k], qs + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
+        ldsm_x4(ag[k], gs + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
+      }
+      // S (+ bias, mask; -inf past N) and dP for keys kk .. kk + 15
+      auto scores = [&](float (&s)[2][4], float (&d)[2][4], int kk) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.f;
+#pragma unroll
+          for (int k = 0; k < KS; ++k) {
+            uint32_t bb[2];
+            const uint32_t o = tok_off<HD>(kk + 8 * j + b_row, 2 * k + b_ch);
+            ldsm_x2(bb, ks + o);
+            mma_bf16(s[j], aq[k], bb[0], bb[1]);
+            ldsm_x2(bb, vs + o);
+            mma_bf16(d[j], ag[k], bb[0], bb[1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r_lo + (e >> 1) * 8,
+                      col = kk + 8 * j + 2 * t + (e & 1);
+            if (col >= N)
+              s[j][e] = -INFINITY;
+            else if (r < N)
+              s[j][e] += bias_h[(long long)r * N + col] +
+                         mf.value(lab, r, col, N);
+          }
+        }
+      };
+
+      // pass 1: per row the max m, l = sum exp(S - m) and sum exp(S - m)
+      // dP, online over the key blocks, then across the quad's lanes
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
+            rsum[2] = {0.f, 0.f};
+      for (int kk = 0; kk < Np; kk += 16) {
+        float s[2][4], d[2][4];
+        scores(s, d, kk);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float mx = m[hf];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+          const float base = mx == -INFINITY ? 0.f : mx;
+          const float c = expf(m[hf] - base);
+          l[hf] *= c;
+          rsum[hf] *= c;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+              const float p = expf(s[j][e] - base);
+              l[hf] += p;
+              rsum[hf] += p * d[j][e];
+            }
+          m[hf] = mx;
+        }
+      }
+      float inv[2], rs[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[hf], o);
+          const float lo = __shfl_xor_sync(0xffffffffu, l[hf], o);
+          const float ro = __shfl_xor_sync(0xffffffffu, rsum[hf], o);
+          const float mx = fmaxf(m[hf], mo);
+          const float base = mx == -INFINITY ? 0.f : mx;
+          const float ca = expf(m[hf] - base), cb = expf(mo - base);
+          l[hf] = l[hf] * ca + lo * cb;
+          rsum[hf] = rsum[hf] * ca + ro * cb;
+          m[hf] = mx;
+        }
+        const int r = r_lo + hf * 8;
+        // a padded query row keeps P = dS = 0
+        inv[hf] = r < N ? 1.f / l[hf] : 0.f;
+        rs[hf] = rsum[hf] * inv[hf];
+        if (t == 0)
+          stats[((long long)win * nH + h) * Np + r] =
+              make_float4(m[hf], inv[hf], rs[hf], 0.f);
+      }
+
+      // pass 2: P, dS; ctx += pb v and dq += bf16(dS) k, 16 keys a step
+      float acc_c[CH][4], acc_q[CH][4];
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_c[n][e] = acc_q[n][e] = 0.f;
+      for (int kk = 0; kk < Np; kk += 16) {
+        float s[2][4], d[2][4];
+        scores(s, d, kk);
+        uint32_t ap[4], as[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float p0 = expf(s[j][2 * hf] - m[hf]) * inv[hf];
+            const float p1 = expf(s[j][2 * hf + 1] - m[hf]) * inv[hf];
+            ap[2 * j + hf] = pack_bf16(p0, p1);
+            as[2 * j + hf] = pack_bf16(p0 * (d[j][2 * hf] - rs[hf]),
+                                       p1 * (d[j][2 * hf + 1] - rs[hf]));
+          }
+#pragma unroll
+        for (int n2 = 0; n2 < KS; ++n2) {
+          uint32_t bv[4], bk[4];
+          const uint32_t bo = tok_off<HD>(kk + k_row, 2 * n2 + (lane >> 4));
+          ldsm_x4_t(bv, vs + bo);
+          ldsm_x4_t(bk, ks + bo);
+          mma_bf16(acc_c[2 * n2], ap, bv[0], bv[1]);
+          mma_bf16(acc_c[2 * n2 + 1], ap, bv[2], bv[3]);
+          mma_bf16(acc_q[2 * n2], as, bk[0], bk[1]);
+          mma_bf16(acc_q[2 * n2 + 1], as, bk[2], bk[3]);
+        }
+      }
+      store_rows<HD>(acc_c, 1.f, ctx + win * N * (long long)C + h * HD, C,
+                     r_lo, N, nullptr, lane);
+      store_rows<HD>(acc_q, scale, dqkv + win * N * (3LL * C) + h * HD,
+                     3LL * C, r_lo, N, wsum + warp * HD, lane);
+    }
+    __syncthreads();  // every warp is done with this window's tiles
+  }
+
+  for (int i = tid; i < HD; i += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < BL_WARPS; ++w) v += wsum[w * HD + i];
+    pb[((long long)grp * nblk + blk) * 3 * C + h * HD + i] = v;
+  }
+}
+
+// The columns CTA of the pair: grid (groups, nH, big_blocks(Np)), BL_WARPS
+// warps; runs after the rows CTA, whose stats it reads. Writes the dk and
+// dv columns of dqkv for its keys, its keys' columns of drel summed over its
+// windows into prel[grp][h] (N x N), and its dk, dv column sums into row
+// (grp * blocks + blk) of pb.
+template <int HD>
+__global__ void __launch_bounds__(BL_WARPS * 32)
+attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
+                     const bf16* __restrict__ dctx,
+                     const float* __restrict__ rel_bias,
+                     const float* __restrict__ mask,
+                     const int* __restrict__ labels,
+                     const float* __restrict__ mask_off,
+                     const float4* __restrict__ stats,
+                     bf16* __restrict__ dqkv, float* __restrict__ prel,
+                     float* __restrict__ pb, long long nwin_total,
+                     int nwin_clip, int N, int Np, int C, int groups,
+                     float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int CH = HD / 8;
+  constexpr int KS = HD / 16;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = blockIdx.x, h = blockIdx.y, blk = blockIdx.z;
+  const int nH = gridDim.y, nblk = gridDim.z;
+  const int key0 = blk * BL_ROWS;
+  const int full = Np * HD * 2, own = BL_ROWS * HD * 2;   // tile bytes
+  const uint32_t qs = smem_u32(smem), gs = qs + full, ks = gs + full,
+                 vs = ks + own, ss = vs + own, ls = ss + Np * sizeof(float4);
+  const float4* st = reinterpret_cast<const float4*>(smem + 2 * full +
+                                                     2 * own);
+  const int* lab = reinterpret_cast<const int*>(smem + 2 * full + 2 * own +
+                                                Np * sizeof(float4));
+  float* drs = reinterpret_cast<float*>(smem + 2 * full + 2 * own +
+                                        Np * (sizeof(float4) + sizeof(int)));
+  float* wsum = drs + Np * BL_DREL_LD;
+  for (int i = tid; i < Np * BL_DREL_LD; i += blockDim.x) drs[i] = 0.f;
+  for (int i = tid; i < BL_WARPS * 2 * HD; i += blockDim.x) wsum[i] = 0.f;
+
+  const float* bias_h = rel_bias + (long long)h * N * N;
+  const int kr_lo = key0 + 16 * warp + g;   // this lane's keys: kr_lo, + 8
+  const int a_row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_row = lane & 7, b_ch = (lane >> 3) & 1;
+  const int k_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const bool active = key0 + 16 * warp < N;
+
+  for (long long win = grp; win < nwin_total; win += groups) {
+    const bf16* qrow = qkv + win * N * (3LL * C) + h * HD;
+    const bf16* grow = dctx + win * N * (long long)C + h * HD;
+    const float4* srow = stats + ((long long)win * nH + h) * Np;
+    for (int idx = tid; idx < Np * CH; idx += blockDim.x) {
+      const int tok = idx / CH, c = idx % CH;
+      const bool ok = tok < N;
+      const uint32_t dst = tok_off<HD>(tok, c);
+      cp_async16(qs + dst, ok ? qrow + (long long)tok * 3 * C + c * 8 : qkv,
+                 ok);
+      cp_async16(gs + dst, ok ? grow + (long long)tok * C + c * 8 : dctx, ok);
+    }
+    for (int idx = tid; idx < BL_ROWS * CH; idx += blockDim.x) {
+      const int r = idx / CH, c = idx % CH, tok = key0 + r;
+      const bool ok = tok < N;
+      const uint32_t dst = tok_off<HD>(r, c);
+      const bf16* src = qrow + (long long)tok * 3 * C + c * 8;
+      cp_async16(ks + dst, ok ? src + C : qkv, ok);
+      cp_async16(vs + dst, ok ? src + 2 * C : qkv, ok);
+    }
+    for (int r = tid; r < Np; r += blockDim.x)
+      cp_async16(ss + (uint32_t)r * 16u, srow + r, true);
+    const MaskForm mf = mask_form(mask, labels, mask_off, win, nwin_clip, N);
+    if (mf.by_label)
+      load_labels(ls, labels + (long long)(win % nwin_clip) * Np, Np);
+    cp_async_commit();
+    cp_async_wait<0>();
+    scale_tile<HD>(smem, Np, scale);
+    __syncthreads();  // the window's tiles and statistics are complete
+
+    if (active) {
+      uint32_t ak[KS][4], av[KS][4];
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        ldsm_x4(ak[k], ks + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
+        ldsm_x4(av[k], vs + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
+      }
+      float acc_k[CH][4], acc_v[CH][4];
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+      for (int qb = 0; qb < Np; qb += 16) {
+        // S^T and dP^T for this warp's 16 keys and queries qb .. qb + 15
+        float s[2][4], d[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.f;
+#pragma unroll
+          for (int k = 0; k < KS; ++k) {
+            uint32_t bb[2];
+            const uint32_t o = tok_off<HD>(qb + 8 * j + b_row, 2 * k + b_ch);
+            ldsm_x2(bb, qs + o);
+            mma_bf16(s[j], ak[k], bb[0], bb[1]);
+            ldsm_x2(bb, gs + o);
+            mma_bf16(d[j], av[k], bb[0], bb[1]);
+          }
+        }
+        uint32_t ap[4], as[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float p[2], ds[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 2 * hf + i;
+              const int kr = kr_lo + hf * 8, qc = qb + 8 * j + 2 * t + i;
+              p[i] = ds[i] = 0.f;
+              if (kr < N && qc < N) {
+                const float4 sq = st[qc];
+                const float v = s[j][e] + (bias_h[(long long)qc * N + kr] +
+                                           mf.value(lab, qc, kr, N));
+                p[i] = expf(v - sq.x) * sq.y;
+                ds[i] = p[i] * (d[j][e] - sq.z);
+              }
+              drs[qc * BL_DREL_LD + 16 * warp + g + hf * 8] += ds[i];
+            }
+            ap[2 * j + hf] = pack_bf16(p[0], p[1]);
+            as[2 * j + hf] = pack_bf16(ds[0], ds[1]);
+          }
+#pragma unroll
+        for (int n2 = 0; n2 < KS; ++n2) {
+          uint32_t bg[4], bq[4];
+          const uint32_t bo = tok_off<HD>(qb + k_row, 2 * n2 + (lane >> 4));
+          ldsm_x4_t(bg, gs + bo);
+          ldsm_x4_t(bq, qs + bo);
+          mma_bf16(acc_v[2 * n2], ap, bg[0], bg[1]);
+          mma_bf16(acc_v[2 * n2 + 1], ap, bg[2], bg[3]);
+          mma_bf16(acc_k[2 * n2], as, bq[0], bq[1]);
+          mma_bf16(acc_k[2 * n2 + 1], as, bq[2], bq[3]);
+        }
+      }
+      bf16* out = dqkv + win * N * (3LL * C) + h * HD;
+      float* ws = wsum + warp * 2 * HD;
+      store_rows<HD>(acc_k, 1.f, out + C, 3LL * C, kr_lo, N, ws, lane);
+      store_rows<HD>(acc_v, 1.f, out + 2 * C, 3LL * C, kr_lo, N, ws + HD,
+                     lane);
+    }
+    __syncthreads();  // every warp is done with this window's tiles
+  }
+
+  for (int i = tid; i < 2 * HD; i += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < BL_WARPS; ++w) v += wsum[w * 2 * HD + i];
+    pb[((long long)grp * nblk + blk) * 3 * C + (1 + i / HD) * C + h * HD +
+       i % HD] = v;
+  }
+  float* relp = prel + ((long long)grp * nH + h) * N * N;
+  for (int idx = tid; idx < N * BL_ROWS; idx += blockDim.x) {
+    const int q = idx / BL_ROWS, kl = idx % BL_ROWS;
+    if (key0 + kl < N)
+      relp[(long long)q * N + key0 + kl] = drs[q * BL_DREL_LD + kl];
+  }
+}
+
+// The attention backward proper, by shape: attn_bwd_kernel for windows of at
+// most 160 padded tokens (the dense mask), else the rows / columns pair
+// (the mask by labels where they are given, see MaskForm; stats: (windows,
+// nH, Np) float4).
 template <int HD>
 int launch_attn_bwd(const bf16* qkv, const bf16* dctx, const float* rel_bias,
-                    const float* mask, bf16* ctx, bf16* dqkv, float* prel,
-                    float* pb, long long nwin_total, int nwin_clip, int N,
-                    int Np, int C, int num_heads, int groups, size_t smem,
-                    cudaStream_t stream) {
+                    const float* mask, const int* labels,
+                    const float* mask_off, bf16* ctx, bf16* dqkv, float* prel,
+                    float* pb, float4* stats, long long nwin_total,
+                    int nwin_clip, int N, int Np, int C, int num_heads,
+                    int groups, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)HD);
+  if (Np <= 8 * BW_MAX_NB) {
+    const size_t smem = bwd_smem_bytes(Np, HD);
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_kernel<HD><<<dim3(groups, num_heads), Np * 2, smem, stream>>>(
+        qkv, dctx, rel_bias, mask, ctx, dqkv, prel, pb, nwin_total,
+        nwin_clip, N, Np, C, groups, scale);
+    return (int)cudaGetLastError();
+  }
+  const size_t s_rows = rows_smem_bytes(Np, HD);
+  const size_t s_cols = cols_smem_bytes(Np, HD);
+  if (Np > BW_BIG_MAX_NP || s_rows > kMaxSmem || s_cols > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_bwd_rows_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s_rows);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_kernel<HD><<<dim3(groups, num_heads), Np * 2, smem, stream>>>(
-      qkv, dctx, rel_bias, mask, ctx, dqkv, prel, pb, nwin_total, nwin_clip,
-      N, Np, C, groups, 1.f / sqrtf((float)HD));
+  e = cudaFuncSetAttribute(attn_bwd_cols_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)s_cols);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(groups, num_heads, big_blocks(Np));
+  attn_bwd_rows_kernel<HD><<<grid, BL_WARPS * 32, s_rows, stream>>>(
+      qkv, dctx, rel_bias, mask, labels, mask_off, ctx, dqkv, stats, pb,
+      nwin_total, nwin_clip, N, Np, C, groups, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_cols_kernel<HD><<<grid, BL_WARPS * 32, s_cols, stream>>>(
+      qkv, dctx, rel_bias, mask, labels, mask_off, stats, dqkv, prel, pb,
+      nwin_total, nwin_clip, N, Np, C, groups, scale);
   return (int)cudaGetLastError();
 }
 
@@ -403,22 +971,28 @@ extern "C" {
 
 // K4. Spatial inputs x, g (B, D, H, W, C) bf16; qkv_w (3C, C), proj_w
 // (C, C) bf16; ln_s, ln_b, qkv_b, rel_bias (nH, N, N), mask (nd, nh, nw, N,
-// N) or null, f32. Outputs: dy (B, D, H, W, C) bf16; dqkv_w (3C, C), dqkv_b
+// N) or null, f32; mask_labels (nd nh nw, Np) int32 and mask_off (nd nh nw)
+// f32, the mask's label form (launch_attn in swin_common.cuh), or null:
+// read by the pair only. Outputs: dy (B, D, H, W, C) bf16; dqkv_w (3C, C), dqkv_b
 // (3C), dproj_w (C, C), drel (nH, N, N) f32. Workspaces (T = B D H W
 // tokens): ws_y, ws_g, ws_dctx, ws_ctx (T, C) bf16; ws_qkv, ws_dqkv (T, 3C)
-// bf16; ws_prel (groups, nH, N, N) f32; ws_pb (groups, 3C) f32;
-// ws_split (splits, 3C, C) f32. Takes head_dim 16 or 32 and windows of at
-// most 160 tokens; 1 <= groups <= windows.
+// bf16; ws_prel (groups, nH, N, N) f32; ws_pb (groups, 3C) f32, or
+// (groups x blocks, 3C) for windows of more than 160 padded tokens (blocks =
+// ceil(Np / 80)); ws_split (splits, 3C, C) f32; ws_stats (windows, nH, Np,
+// 4) f32 for windows of more than 160 padded tokens, else unused (Np = N
+// rounded up to 16). Takes head_dim 16 or 32 and windows of at most 400
+// tokens; 1 <= groups <= windows.
 int lrce_attn_bwd(const void* x, const void* g, int B, int D, int H, int W,
                   int C, int wd, int wh, int ww, int sd, int sh, int sw,
                   int num_heads, float eps, const void* ln_s,
                   const void* ln_b, const void* qkv_w, const void* qkv_b,
                   const void* proj_w, const void* rel_bias, const void* mask,
+                  const void* mask_labels, const void* mask_off,
                   void* dy, void* dqkv_w, void* dqkv_b, void* dproj_w,
                   void* drel, void* ws_y, void* ws_qkv, void* ws_g,
                   void* ws_dctx, void* ws_ctx, void* ws_dqkv, void* ws_prel,
-                  void* ws_pb, void* ws_split, int groups, int splits,
-                  void* stream_ptr) {
+                  void* ws_pb, void* ws_split, void* ws_stats, int groups,
+                  int splits, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const WinGeom geo = make_geom(B, D, H, W, C, wd, wh, ww, sd, sh, sw);
   const long long T = (long long)B * D * H * W;
@@ -426,10 +1000,9 @@ int lrce_attn_bwd(const void* x, const void* g, int B, int D, int H, int W,
   const int Np = (N + 15) / 16 * 16;
   const int hd = C / num_heads;
   const long long nwin_total = T / N;
-  if (Np > 8 * BW_MAX_NB || groups < 1 || groups > nwin_total)
+  if (Np > BW_BIG_MAX_NP || groups < 1 || groups > nwin_total ||
+      (mask_labels && !mask_off))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(Np, hd);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   bf16* y = static_cast<bf16*>(ws_y);
   bf16* qkv = static_cast<bf16*>(ws_qkv);
   bf16* gw = static_cast<bf16*>(ws_g);
@@ -438,6 +1011,7 @@ int lrce_attn_bwd(const void* x, const void* g, int B, int D, int H, int W,
   bf16* dqkv = static_cast<bf16*>(ws_dqkv);
   float* prel = static_cast<float*>(ws_prel);
   float* pbias = static_cast<float*>(ws_pb);
+  float4* stats = static_cast<float4*>(ws_stats);
 
   // recompute y = LN1(x) and qkv, window order (shift in the gather)
   int rc = launch_ln(static_cast<const bf16*>(x), y,
@@ -464,16 +1038,18 @@ int lrce_attn_bwd(const void* x, const void* g, int B, int D, int H, int W,
   const int nwin_clip = geo.nd * geo.nh * geo.nw;
   const float* rb = static_cast<const float*>(rel_bias);
   const float* mk = static_cast<const float*>(mask);
+  const int* lb = static_cast<const int*>(mask_labels);
+  const float* mo = static_cast<const float*>(mask_off);
   switch (hd) {
     case 16:
-      rc = launch_attn_bwd<16>(qkv, dctx, rb, mk, ctx, dqkv, prel, pbias,
-                               nwin_total, nwin_clip, N, Np, C, num_heads,
-                               groups, smem, stream);
+      rc = launch_attn_bwd<16>(qkv, dctx, rb, mk, lb, mo, ctx, dqkv, prel,
+                               pbias, stats, nwin_total, nwin_clip, N, Np, C,
+                               num_heads, groups, stream);
       break;
     case 32:
-      rc = launch_attn_bwd<32>(qkv, dctx, rb, mk, ctx, dqkv, prel, pbias,
-                               nwin_total, nwin_clip, N, Np, C, num_heads,
-                               groups, smem, stream);
+      rc = launch_attn_bwd<32>(qkv, dctx, rb, mk, lb, mo, ctx, dqkv, prel,
+                               pbias, stats, nwin_total, nwin_clip, N, Np, C,
+                               num_heads, groups, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -482,8 +1058,8 @@ int lrce_attn_bwd(const void* x, const void* g, int B, int D, int H, int W,
   rc = launch_sum_parts(prel, static_cast<float*>(drel), groups,
                         (long long)num_heads * N * N, stream);
   if (rc) return rc;
-  rc = launch_sum_parts(pbias, static_cast<float*>(dqkv_b), groups,
-                        3LL * C, stream);
+  rc = launch_sum_parts(pbias, static_cast<float*>(dqkv_b),
+                        (int)bias_parts(Np, groups), 3LL * C, stream);
   if (rc) return rc;
 
   // weight gradients (split-K) and dy = dqkv . Wqkv back to spatial order

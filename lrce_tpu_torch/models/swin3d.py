@@ -330,11 +330,12 @@ class BasicLayer(nn.Module):
         # The route is chosen by shape before any launch, never by catching
         # a kernel's refusal: the kernels need window-aligned stages, and
         # with grad mode on the backward needs K4, which takes windows of at
-        # most 160 tokens (16-frame clips give N = 392: the plain block).
+        # most 400 tokens at head_dim 16 or 32 (16-frame clips give N = 392,
+        # which trains on the kernels; a wider head dim takes the plain
+        # block).
         kernels = use_kernels and aligned and (
             not torch.is_grad_enabled()
-            or attn_bwd_supported(window[0] * window[1] * window[2],
-                                  c // self.num_heads))
+            or attn_bwd_supported(n, c // self.num_heads))
         nwin = tuple(v // wv for v, wv in zip(dims, window))
         heads = self.num_heads
         dt = x.dtype

@@ -15,7 +15,10 @@ window-attention pieces the Swin kernels share.
   ``_pallas_bwd_impl``: it recomputes LN1, qkv and the softmax from the
   block input and returns the LN1-output cotangent dy and the gradients of
   qkv_w, qkv_b, proj_w and rel_bias (``csrc/attn_bwd.cu``). The head chunks
-  exist on the TPU only to fit VMEM and do not come across.
+  exist on the TPU only to fit VMEM and do not come across. Windows of up to
+  160 tokens take one CTA per (window group, head); windows of 161-400
+  tokens (the 16-frame window (8, 7, 7), N = 392) a rows / columns pair of
+  CTAs per (window group, head, 80-row block).
 
 - ``window_attention_core`` is the attention CTA that K6, K2, K1 and K3
   share (``csrc/attn_fwd.cu``), on its own: packed qkv, rel_bias and mask in,
@@ -441,23 +444,45 @@ def sm_count(x: torch.Tensor) -> int:
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
-ATTN_BWD_MAX_TOKENS = 160   # K4's CTA: ten 16-row key blocks at most
+ATTN_BWD_SMALL_TOKENS = 160  # attn_bwd_kernel: ten 16-row key blocks at most
+ATTN_BWD_MAX_TOKENS = 400    # the rows / columns pair: 25 blocks of 16
+ATTN_BWD_BLOCK_ROWS = 80     # query rows / keys of one of the pair's CTAs
+ATTN_BWD_PAIR_CTAS = 16      # the pair's CTAs an SM over a call, about
 
 
 def attn_bwd_supported(n: int, head_dim: int) -> bool:
     """Whether K4 (``window_attention_bwd`` on CUDA) takes windows of n
-    tokens at this head_dim. Its wrapper and the Swin stage's choice of
-    route read this one rule."""
+    tokens at this head_dim: attn_bwd_kernel takes up to 160 (padded to 16),
+    the rows / columns pair up to 400. Its wrapper and the Swin stage's
+    choice of route read this one rule."""
     return n <= ATTN_BWD_MAX_TOKENS and head_dim in (16, 32)
 
 
-def attn_bwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
-    """Window groups of K4's grid: each CTA (group, head) walks its windows,
-    keeps its f32 partial of drel and of the qkv-bias gradient on chip and
-    writes it once; the partials are summed afterwards in a fixed order. The
-    CTA fills an SM (ten warps, ~190 KB of shared memory), so the grid has
-    about one CTA per SM of ``sms`` and never more groups than windows."""
-    return max(1, min(nwin_total, sms // num_heads))
+def attn_bwd_blocks(n: int) -> int:
+    """Row blocks of K4's grid: 1 for attn_bwd_kernel (N padded to 16 at
+    most 160), else the pair's 80-row blocks of the padded window."""
+    padded = -(-n // 16) * 16
+    if padded <= ATTN_BWD_SMALL_TOKENS:
+        return 1
+    return -(-padded // ATTN_BWD_BLOCK_ROWS)
+
+
+def attn_bwd_groups(nwin_total: int, num_heads: int, sms: int,
+                    blocks: int = 1) -> int:
+    """Window groups of K4's grid: each CTA (group, head[, block]) walks its
+    windows, keeps its f32 partial of drel and of the qkv-bias gradient on
+    chip and writes it once; the partials are summed afterwards in a fixed
+    order. attn_bwd_kernel fills an SM (ten warps, ~190 KB of shared
+    memory), so with ``blocks`` 1 the grid has about one CTA per SM of
+    ``sms`` and never more groups than windows. The pair (``blocks`` row
+    blocks) gets about 16 CTAs an SM over the call, at most one group a
+    window: its rows CTA (five warps, ~64 KB) runs three to an SM and needs
+    that many to fill the card, its columns CTA (~205 KB) one, in waves
+    short enough to balance."""
+    if blocks == 1:
+        return max(1, min(nwin_total, sms // num_heads))
+    want = -(-ATTN_BWD_PAIR_CTAS * sms // (num_heads * blocks))
+    return max(1, min(nwin_total, want))
 
 
 SPLITK_TILE = 128           # the weight-gradient GEMM's output tile edge
@@ -476,10 +501,15 @@ def attn_bwd_workspace_shapes(t: int, c: int, num_heads: int, n: int,
                               groups: int, splits: int):
     """(bf16 shapes, f32 shapes) of K4's workspaces, in the C entry's
     order: y, qkv, g (window order), dctx, ctx, dqkv; then the per-group
-    partials of drel and of the qkv-bias sums and the split-K partials."""
+    partials of drel and of the qkv-bias sums (one row per group and row
+    block), the split-K partials, and the pair's per-row softmax statistics
+    (m, 1 / l, rowsum(dP P), 0 for every row of the padded window; empty
+    where attn_bwd_kernel takes the window)."""
+    blocks = attn_bwd_blocks(n)
+    rows = 0 if blocks == 1 else t // n * num_heads * (-(-n // 16) * 16)
     return (((t, c), (t, 3 * c), (t, c), (t, c), (t, c), (t, 3 * c)),
-            ((groups, num_heads, n, n), (groups, 3 * c),
-             (splits, 3 * c, c)))
+            ((groups, num_heads, n, n), (groups * blocks, 3 * c),
+             (splits, 3 * c, c), (rows, 4)))
 
 
 def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
@@ -500,7 +530,8 @@ def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
                          f"32, got {n} and {c // num_heads}")
     t = b * d * h * w
     sms = sm_count(x)
-    groups = attn_bwd_groups(t // n, num_heads, sms)
+    blocks = attn_bwd_blocks(n)
+    groups = attn_bwd_groups(t // n, num_heads, sms, blocks)
     splits = splitk_splits(t, 3 * c, c, sms)
     dev = x.device
 
@@ -516,11 +547,13 @@ def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
     bf_shapes, f32_shapes = attn_bwd_workspace_shapes(t, c, num_heads, n,
                                                       groups, splits)
     ws = (*(bf(*sh) for sh in bf_shapes), *(f32(*sh) for sh in f32_shapes))
+    # the pair (N > 160) reads the mask by its labels, attn_bwd_kernel densely
+    labels, off = mask_label_args(mask) if blocks > 1 else (None, None)
     rc = cuda_lib.library().lib.lrce_attn_bwd(
         x.data_ptr(), g.data_ptr(), b, d, h, w, c, *window, *shift,
         num_heads, ln_eps, ln_scale.data_ptr(), ln_bias.data_ptr(),
         qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(),
-        rel_bias.data_ptr(), _ptr(mask),
+        rel_bias.data_ptr(), _ptr(mask), _ptr(labels), _ptr(off),
         dy.data_ptr(), dqkv_w.data_ptr(), dqkv_b.data_ptr(),
         dproj_w.data_ptr(), drel.data_ptr(), *(t_.data_ptr() for t_ in ws),
         groups, splits, _stream(x))

@@ -2,10 +2,10 @@
 """Call K7 (``fused_ln_mlp``) many times on one GPU and watch for a kernel
 that does not finish.
 
-    python3 lrce_tpu_torch/tools/k7_stress.py [--clips 48,6,48] [--calls 500]
+    python -m lrce_tpu_torch.tools.k7_stress [--clips 48,6,48] [--calls 500]
 
-Run it from the root of the tree to be measured (the package and that tree's
-``chip_smoke.py`` are imported from the current directory). At each clip
+Run it from the root of the tree to be measured (the package, this script
+and that tree's ``chip_smoke.py`` come from the current directory). At each clip
 count (flagship stage 3: T = clips x 147, C = 1024, FF = 4096, random
 weights from a seed) it makes ``--calls`` calls one after another, each
 followed by a CUDA event that the host polls: a call that has not finished
@@ -25,8 +25,6 @@ import sys
 import time
 
 import torch
-
-sys.path.insert(0, os.getcwd())
 
 WEDGED_AFTER_S = 5.0
 

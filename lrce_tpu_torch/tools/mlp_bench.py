@@ -2,13 +2,13 @@
 """Time K7 (``fused_ln_mlp``) and K8 (``fused_mlp``) on one GPU, split by
 kernel on the device, with the library's products beside them.
 
-    python3 lrce_tpu_torch/tools/mlp_bench.py [--clips 6,48]
+    python -m lrce_tpu_torch.tools.mlp_bench [--clips 6,48]
 
-Run it from the root of the tree to be measured: the package (and that
-tree's ``chip_smoke.py``, for its helpers) is imported from the current
-directory, so one copy of the script times another checkout, or the same
-tree with another version of a source under ``csrc/``, in turns on one
-card (each tree builds its own kernel library).
+Run it from the root of the tree to be measured: the package, this script
+and that tree's ``chip_smoke.py`` (for its helpers) come from the current
+directory, so a comparison runs each checkout's own copy, or the same tree
+with another version of a source under ``csrc/``, in turns on one card
+(each tree builds its own kernel library).
 
 At each clip count: K7 at the flagship's stage 3 (T = clips x 147, C =
 1024, FF = 4096) without and with dp2, K8 at stage 0 (C = 128, FF = 512)
@@ -30,13 +30,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import re
 import sys
 
 import torch
-
-sys.path.insert(0, os.getcwd())
 
 ITERS = 20
 

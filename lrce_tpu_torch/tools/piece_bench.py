@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the shared GEMM and K1 / K3's back half alone on one GPU.
 
-    python3 lrce_tpu_torch/tools/piece_bench.py
+    python -m lrce_tpu_torch.tools.piece_bench
 
-Run it from the root of the tree to be measured: the package (and that
-tree's ``chip_smoke.py``, for its helpers) is imported from the current
-directory, so one copy of the script times another checkout, or the same
-tree with another version of a source under ``csrc/``, for a comparison in
-turns on one card (each tree builds its own kernel library).
+Run it from the root of the tree to be measured: the package, this script
+and that tree's ``chip_smoke.py`` (for its helpers) come from the current
+directory, so a comparison runs each checkout's own copy, or the same tree
+with another version of a source under ``csrc/``, in turns on one card
+(each tree builds its own kernel library).
 
 At the flagship's 48-clip train step shapes: ``ops/gemm.gemm_bf16`` in the
 epilogue mode each product uses (qkv, proj, fc1, fc2 at stages 0-3, the
@@ -23,12 +23,9 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import sys
 
 import torch
-
-sys.path.insert(0, os.getcwd())
 
 # name: (M, N, K, mode); mode -1: EPI_ATTN_OUT with the weight read in place
 SHAPES = {"qkv0": (451584, 384, 128, 0), "proj0": (451584, 128, 128, 2),

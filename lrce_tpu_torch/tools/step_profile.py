@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Time and profile the flagship train step of the port on one GPU.
 
-    python3 lrce_tpu_torch/tools/step_profile.py [--steps 6] [--profile]
-                                                 [--ln-mlp]
+    python -m lrce_tpu_torch.tools.step_profile [--steps 6] [--profile]
+                                                [--ln-mlp] [--frames 5]
 
-Run it from the root of the tree to be measured: the package is imported
-from the current directory, so the same script can time another checkout
-(``cd other/tree && python3 /path/to/step_profile.py``) for a comparison in
-turns on one card.
+Run it from the root of the tree to be measured: the package and this
+script come from the current directory, so a comparison runs each
+checkout's own copy (``cd other/tree && python -m ...``) in turns on one
+card.
 
 It builds the flagship LRCEModel (f32 parameters, bf16 compute, random
 weights from seed 0) and an AgentOE with the config defaults, takes two
-warm-up steps at 16 questions x 3 clips of seeded uint8 frames, then
+warm-up steps at 16 questions x 3 clips of seeded uint8 frames (5 a clip,
+or ``--frames``: 16 gives the window (8, 7, 7), N = 392), then
 ``--steps`` timed steps made of the agent's own pieces (zero_grad, forward,
 loss + l2_reg, backward, AdamW): per step the wall ms (host clock around a
 synchronized step, the batch's copy included) and the CUDA-event ms of each
@@ -27,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import time
@@ -35,12 +35,11 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.getcwd())
-
 BATCH = 16    # questions per step, x 3 clips: the trainer's default batch
 KINDS = (   # first match wins, on the kernel's name; the names of earlier
             # versions of the kernels stay, so that an older checkout sorts alike
     ("K4 attention-backward CTA", ("attn_bwd_kernel",)),
+    ("K4 rows / columns pair (N > 160)", ("attn_bwd_rows", "attn_bwd_cols")),
     ("K5 hidden kernel (fc1 + dhid + GELU backward)", ("mlp_bwd_hidden",)),
     ("split-K weight-gradient GEMM", ("gemm_tn",)),
     ("hand-written GEMM", ("gemm_wgmma", "gemm_bf16_kernel")),
@@ -67,8 +66,9 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _batch(rng, questions: int):
-    clips = rng.integers(0, 256, (questions, 3, 5, 224, 224, 3), dtype=np.uint8)
+def _batch(rng, questions: int, frames: int = 5):
+    clips = rng.integers(0, 256, (questions, 3, frames, 224, 224, 3),
+                         dtype=np.uint8)
     ids = rng.integers(1000, 30000, (questions, 32))
     mask = np.ones((questions, 32), np.int64)
     mask[::2, 24:] = 0
@@ -82,6 +82,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--ln-mlp", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: CUDA is not available", file=sys.stderr)
@@ -95,13 +96,14 @@ def main() -> int:
     from lrce_tpu_torch.train import optimizer as O
     from lrce_tpu_torch.train.agent import AgentOE, default_args
 
-    cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32)
+    cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32,
+                    frame_sample_size=args.frames)
     model = LRCEModel(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(0),
                       ln_mlp=args.ln_mlp)
     agent = AgentOE(model, default_args(), log_enabled=False, seed=0)
     rng = np.random.default_rng(7)
-    batches = [_batch(rng, BATCH) for _ in range(3)]
+    batches = [_batch(rng, BATCH, args.frames) for _ in range(3)]
 
     def step(events: bool):
         """The agent's train step, piece by piece, with an event between

@@ -201,7 +201,9 @@ def test_a_mask_that_is_not_two_valued_by_labels_is_detected(case):
 
 
 def test_mask_labels_are_made_once_per_mask():
-    mask = _mask()
+    # a copy: the write below must not reach compute_shift_mask's cached
+    # array, which later tests in the same process read
+    mask = _mask().clone()
     first = WA.mask_label_args(mask)
     again = WA.mask_label_args(mask.reshape(-1, N, N).reshape(*NWIN, N, N))
     assert first[0] is again[0] and first[1] is again[1]

@@ -180,8 +180,8 @@ def test_back_half_refuses_other_devices():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n,hd,ok", [(147, 32, True), (160, 16, True),
-                                     (392, 32, False), (147, 64, False),
-                                     (161, 32, False)])
+                                     (392, 32, True), (147, 64, False),
+                                     (161, 32, True)])
 def test_attn_bwd_supported(n, hd, ok):
     assert WA.attn_bwd_supported(n, hd) is ok
 
@@ -200,7 +200,7 @@ def _routes(monkeypatch):
 
 
 @pytest.mark.parametrize("frames,grad,route", [
-    (8, True, "swin_block"),            # N = 392: K4 refuses, plain block
+    (8, True, "fused_swin_block"),      # N = 392: K4's rows / columns pair
     (8, False, "fused_swin_block"),     # no backward: the kernels
     (3, True, "fused_swin_block"),      # N = 147: the kernels
 ], ids=["n392-grad", "n392-nograd", "n147-grad"])
@@ -216,5 +216,21 @@ def test_stage_route_by_k4_shape(monkeypatch, frames, grad, route):
         out = layer(x, True, PS.DeviceConstants())
     assert out.shape == x.shape and torch.isfinite(out).all()
     assert seen[0] == route and len(seen) == 2
-    if route == "swin_block":
-        assert seen == ["swin_block"] * 2
+
+
+def test_stage_takes_the_plain_block_where_k4_refuses(monkeypatch):
+    """head_dim 64 (one head at C = 64), which K4 does not take: with grad
+    mode on both blocks run the plain block; without grad the kernels."""
+    cfg = PS.SwinConfig(embed_dim=64, depths=(2,), num_heads=(1,),
+                        window_size=(8, 7, 7))
+    layer = PS.BasicLayer(64, 2, 1, cfg, False, torch.float32,
+                          torch.Generator().manual_seed(0))
+    x = torch.randn((1, 3, 7, 7, 64),
+                    generator=torch.Generator().manual_seed(1))
+    seen = _routes(monkeypatch)
+    out = layer(x, True, PS.DeviceConstants())
+    assert torch.isfinite(out).all() and seen == ["swin_block"] * 2
+    seen.clear()
+    with torch.no_grad():
+        layer(x, True, PS.DeviceConstants())
+    assert seen[0] == "fused_swin_block"

@@ -3,7 +3,9 @@ bf16, at a small geometry (K7 and K5 also at C = 1024, K7 at one request's
 and one train step's T with one launch a call and bit-identical repeats,
 K8 at C = 128, 256 and 512 likewise; the
 shared wgmma GEMMs on their own at ragged shapes; K4 and K5 at the
-flagship's stage 0 and stage 3 widths and twice over for bit-identity; the
+flagship's stage 0 and stage 3 widths and twice over for bit-identity, K4's
+rows / columns pair at the 16-frame window (N = 392) at all four stages and
+at N = 196 and 245; the
 attention-forward CTA on its own at the flagship's window and at the edges
 of its range, and the WMMA CTA that takes the shapes beyond it), the
 K1 / K3 / K2 / K7 autograd.Functions' gradients against torch autograd
@@ -518,6 +520,52 @@ def test_k4_at_flagship_widths_twice(dev, dims, heads, shift):
         assert torch.equal(a, b)    # fixed-order sums: bit-identical
 
 
+# K4's rows / columns pair (windows of 161-400 tokens): the flagship's four
+# stages at 16 frames (window (8, 7, 7), N = 392; stages 0-2 shifted by
+# (0, 3, 3), stage 3 unshifted), and windows whose padded size is no
+# multiple of the pair's 80-row blocks: N = 196 (8 frames) at head_dim 16,
+# N = 245 (10 frames)
+K4_PAIR_SHAPES = {
+    "stage0": ((2, 8, 56, 56, 128), 4, (8, 7, 7), (0, 3, 3)),
+    "stage1": ((2, 8, 28, 28, 256), 8, (8, 7, 7), (0, 3, 3)),
+    "stage2": ((3, 8, 14, 14, 512), 16, (8, 7, 7), (0, 3, 3)),
+    "stage3": ((3, 8, 7, 7, 1024), 32, (8, 7, 7), (0, 0, 0)),
+    "n196-hd16": ((2, 4, 14, 14, 64), 4, (4, 7, 7), (0, 3, 3)),
+    "n245": ((2, 5, 14, 14, 128), 4, (5, 7, 7), (0, 3, 3)),
+}
+
+
+@pytest.mark.parametrize("shape", list(K4_PAIR_SHAPES))
+def test_k4_pair_matches_plain_twice(dev, shape):
+    dims, heads, window, shift = K4_PAIR_SHAPES[shape]
+    case = _k4_case(np.random.default_rng(29), dev, dims, heads, window,
+                    shift)
+    before = WA.window_attention_bwd.launches
+    got = WA.window_attention_bwd(*case)
+    assert WA.window_attention_bwd.launches == before + 1
+    for a, b in zip(got, WA.window_attention_bwd_plain(*case)):
+        _close(a, b)
+    for a, b in zip(got, WA.window_attention_bwd(*case)):
+        assert torch.equal(a, b)    # fixed-order sums: bit-identical
+
+
+def test_k4_pair_reads_a_mask_without_label_form_densely(dev):
+    """One window of the shift mask made three-valued has no label form
+    (``shift_mask_labels`` gives it off = NaN): the pair reads that window's
+    mask as it lies and the others by their labels."""
+    case = list(_k4_case(np.random.default_rng(31), dev, (2, 4, 14, 14, 64),
+                         4, (4, 7, 7), (0, 3, 3)))
+    mask = case[8].clone()
+    flat = mask.view(-1, 196, 196)      # windows (1, 2, 2): the last is 3
+    i, j = (flat[3] != 0).nonzero()[0].tolist()
+    flat[3, i, j] = -50.0
+    case[8] = mask
+    assert bool(torch.isnan(WA.mask_label_args(mask)[1][3]))
+    got = WA.window_attention_bwd(*case)
+    for a, b in zip(got, WA.window_attention_bwd_plain(*case)):
+        _close(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the attention-forward CTA on its own
 # ---------------------------------------------------------------------------
@@ -693,9 +741,12 @@ def test_k1_k3_at_stages_0_1_run_the_back_half(dev, c, heads):
 
 def test_train_step_at_n392_matches_the_plain_route(dev):
     """16-frame clips: the window (8, 7, 7) holds N = 392 tokens at stages
-    0-2, which K4 refuses, so those stages take the plain block with grad
-    on; stage 3 (N = 128) takes the kernels. Loss and per-stage gradients
-    within chip_smoke's route-parity limits (1e-2, 1e-1)."""
+    0-2, which K4 takes with its rows / columns pair, so those stages train
+    on the kernels with grad on: stages 0-1 launch a K1 (fused_swin_block)
+    and a K3 (fused_swin_pair) in the forward, stage 2 (one window a clip,
+    no shift) two K1, and each K4 twice in the backward; stage 3 (N = 128,
+    unshifted) two K1 and two K4. Loss and per-stage gradients within
+    chip_smoke's route-parity limits (1e-2, 1e-1)."""
     from lrce_tpu_torch.models import swin3d as PS
 
     cfg = PS.SwinConfig(embed_dim=64, depths=(2, 2, 2, 2),
@@ -706,7 +757,9 @@ def test_train_step_at_n392_matches_the_plain_route(dev):
     x = torch.randn((2, 16, 112, 112, 3),
                     generator=torch.Generator().manual_seed(1)).to(dev)
     x = x.bfloat16()
-    before = (SB.fused_swin_block.launches, WA.window_attention_bwd.launches)
+    wrappers = (SB.fused_swin_block, SB.fused_swin_pair,
+                WA.window_attention_bwd)
+    before = [f.launches for f in wrappers]
 
     # a fixed random projection of the output: the mean square of a
     # LayerNorm's output would not depend on its input
@@ -727,8 +780,9 @@ def test_train_step_at_n392_matches_the_plain_route(dev):
         return loss.item(), grads
 
     lk, gk = run(True)
-    assert SB.fused_swin_block.launches > before[0]          # stage 3
-    assert WA.window_attention_bwd.launches > before[1]
+    # K1: one a stage at 0-1, two at stages 2-3; K3: one a stage at 0-1;
+    # K4: one a block
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [6, 2, 8]
     lp, gp = run(False)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     for a, b in zip(gk, gp):

@@ -75,7 +75,43 @@ def test_workspace_shapes(t, c, heads):
     bf, f32 = WA.attn_bwd_workspace_shapes(t, c, heads, 147, groups, splits)
     assert bf == ((t, c), (t, 3 * c), (t, c), (t, c), (t, c), (t, 3 * c))
     assert f32 == ((groups, heads, 147, 147), (groups, 3 * c),
-                   (splits, 3 * c, c))
+                   (splits, 3 * c, c), (0, 4))
+
+
+# (tokens, C, heads) of the flagship's stages at 48 clips of 16 frames: the
+# window (8, 7, 7), N = 392, at every stage
+STAGES16 = [(1204224, 128, 4), (301056, 256, 8), (75264, 512, 16),
+            (18816, 1024, 32)]
+
+
+@pytest.mark.parametrize("n,blocks", [(147, 1), (160, 1), (161, 3),
+                                      (196, 3), (245, 4), (392, 5),
+                                      (400, 5)])
+def test_attn_bwd_blocks(n, blocks):
+    assert WA.attn_bwd_blocks(n) == blocks
+
+
+@pytest.mark.parametrize("t,c,heads", STAGES16)
+def test_attn_bwd_pair_workspaces_at_n392(t, c, heads):
+    """The pair's bias partials take a row per (group, 80-row block) and its
+    statistics four floats per (window, head, row of the padded window)."""
+    groups, splits = 3, 2
+    bf, f32 = WA.attn_bwd_workspace_shapes(t, c, heads, 392, groups, splits)
+    assert bf == ((t, c), (t, 3 * c), (t, c), (t, c), (t, c), (t, 3 * c))
+    assert f32 == ((groups, heads, 392, 392), (groups * 5, 3 * c),
+                   (splits, 3 * c, c), (t // 392 * heads * 400, 4))
+
+
+@pytest.mark.parametrize("t,c,heads,want", [
+    (s[0], s[1], s[2], w) for s, w in zip(STAGES16, (106, 53, 27, 14))])
+def test_attn_bwd_pair_groups_give_16_ctas_an_sm(t, c, heads, want):
+    """At N = 392 on 132 SMs: about 16 x 132 CTAs of heads x 5 blocks a
+    group, never more groups than windows."""
+    nwin = t // 392
+    groups = WA.attn_bwd_groups(nwin, heads, SMS, WA.attn_bwd_blocks(392))
+    assert groups == want
+    assert (groups - 1) * heads * 5 < 16 * SMS <= groups * heads * 5
+    assert WA.attn_bwd_groups(2, heads, SMS, 5) == 2   # never past the windows
 
 
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,

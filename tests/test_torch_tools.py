@@ -45,10 +45,10 @@ from lrce_tpu_torch.config import parse_arg_eval
 from lrce_tpu_torch.models import bert as PB
 from lrce_tpu_torch.models import e2e as PE
 from lrce_tpu_torch.models import swin3d as PS
-from lrce_tpu_torch.tools import (bench_ingest, calculate_flops, common,
-                                  e2e_eval_bench, extract_features, flops,
-                                  graft_entry, parity_eval, preflight, profile,
-                                  sanity_curve, stage_bench, synth,
+from lrce_tpu_torch.tools import (bench, bench_ingest, calculate_flops,
+                                  common, e2e_eval_bench, extract_features,
+                                  flops, graft_entry, parity_eval, preflight,
+                                  profile, sanity_curve, stage_bench, synth,
                                   train_bench)
 from lrce_tpu_torch.utils import checkpoint as PCk
 
@@ -503,7 +503,26 @@ def test_graft_entry_is_the_forward(tmp_path):
         "lrce_tpu_torch.parallel.dryrun")
 
 
+def test_bench_prints_one_json_line(monkeypatch, capsys):
+    """bench.py's program at the tiny model, its forwards cut from 32
+    questions x 20 to 2 x 2 (at 32 one tiny forward takes ~18 s on one CPU
+    thread): one line, the four keys, a positive rate, not labelled as a
+    card's."""
+    monkeypatch.setattr(bench, "BATCH", 2)
+    monkeypatch.setattr(bench, "ITERS", 2)
+    got = bench.main([], device="cpu", model_cfg=tiny_cfg())
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line == got
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
+    assert line["metric"] == "clips_per_sec_cpu" and line["value"] > 0
+    assert line["vs_baseline"] == round(
+        line["value"] / bench.A100_BASELINE_CLIPS_PER_SEC, 3)
+
+
 TOOLS = {
+    "bench": lambda p: bench.main([]),
     "preflight": lambda p: preflight.main([]),
     "train_bench": lambda p: train_bench.main([]),
     "profile": lambda p: profile.main([]),

@@ -256,10 +256,10 @@ def test_dropout_statistics_and_determinism():
 # the tiny end-to-end model (tests/test_torch_e2e.py's) in training
 # ---------------------------------------------------------------------------
 
-def tiny_configs(task: str, rate: float = 0.0):
+def tiny_configs(task: str, rate: float = 0.0, frames: int = 5):
     kw = dict(feature_dim=36, num_classes=1 if task == "mc" else 11,
               video_feature_res=(7, 7), video_feature_dim=64,
-              frame_sample_size=5, temporal_scale=(3,), text_seq_len=8,
+              frame_sample_size=frames, temporal_scale=(3,), text_seq_len=8,
               task_type=task, drop_out_rate=rate)
     bert = dict(hidden_size=36, num_layers=2, num_heads=2,
                 intermediate_size=72, hidden_dropout=rate,
@@ -272,10 +272,10 @@ def tiny_configs(task: str, rate: float = 0.0):
                          swin=PS.SwinConfig(**swin)))
 
 
-def tiny_batch(task: str, seed: int = 0):
+def tiny_batch(task: str, seed: int = 0, frames: int = 5, b: int = 2):
     rng = np.random.default_rng(seed)
-    b, m = 2, 3
-    clips = rng.integers(0, 256, (b, 3, 5, 224, 224, 3), dtype=np.uint8)
+    m = 3
+    clips = rng.integers(0, 256, (b, 3, frames, 224, 224, 3), dtype=np.uint8)
     tshape = (b, m, 8) if task == "mc" else (b, 8)
     ids = rng.integers(0, 1000, tshape)
     mask = np.ones(tshape, np.int64)
@@ -349,12 +349,16 @@ def test_e2e_gradients_match_jax_agent_loss(task):
                                                       np.abs(w).max())
 
 
-def test_agent_oe_train_step_matches_jax():
+def agent_oe_step_matches_jax(frames: int, questions: int):
+    """One AgentOE step (forward, loss, backward, AdamW) against lrce_tpu's
+    agent from the same parameters and batch: the loss to 1e-4, every
+    parameter whose gradient is decided (above 1e-4 of its largest) within
+    0.02 x lr of lrce_tpu's update."""
     task = "oe"
-    jcfg, pcfg = tiny_configs(task)
+    jcfg, pcfg = tiny_configs(task, frames=frames)
     params = jax.tree.map(np.asarray, E.e2e_init(jax.random.PRNGKey(3), jcfg))
     args = _args()
-    batch = tiny_batch(task, seed=4)
+    batch = tiny_batch(task, seed=4, frames=frames, b=questions)
     jb = _jax_batch(batch)
     jagent = _jax_agent(task, jcfg, jax.tree.map(jnp.asarray, params), args)
 
@@ -369,7 +373,7 @@ def test_agent_oe_train_step_matches_jax():
     agent = PA.AgentOE(model, args, log_enabled=False)
     loss, m0, m1 = agent.step(*batch, is_train=True)
     np.testing.assert_allclose(loss, jloss, rtol=1e-4)
-    assert m1 == 2.0
+    assert m1 == questions
     start = state_dict_from_jax(params)
     lr = {"fusion_model": 1e-3, "text_extractor": 2e-3,
           "video_extractor": 3e-3}
@@ -384,6 +388,10 @@ def test_agent_oe_train_step_matches_jax():
             err_msg=name)
         moved += int((np.abs(got - start[name].numpy()) > 0.5 * step).any())
     assert moved > 0.9 * len(list(model.parameters()))
+
+
+def test_agent_oe_train_step_matches_jax():
+    agent_oe_step_matches_jax(5, 2)
 
 
 def test_e2e_training_forward_is_seeded():

@@ -4,7 +4,8 @@ tests/test_pallas_swin_block.py run them:
 
   - K4 (``window_attention_bwd``, plain version) + the LN1 input backward
     against ``_pallas_bwd_impl`` with two head chunks, with and without the
-    mask, and its in-addressing shift against a roll around it;
+    mask, and its in-addressing shift against a roll around it, at the
+    window (2, 3, 3) and at the 16-frame window (8, 7, 7) (N = 392);
   - K5 (``mlp_bwd``, plain version) + the LN2 input backward against
     ``_mlp_bwd_impl``, with and without dp2;
   - K6 (``fused_window_attention``, plain version) against the Pallas
@@ -59,7 +60,7 @@ MLP = ("ln2s", "ln2b", "w1", "b1", "w2", "b2")
 MATS = ("qkv_w", "proj_w", "w1", "w2")
 
 
-def _weights(rng, k=None):
+def _weights(rng, k=None, c=C, heads=HEADS, n=N):
     """Block weights in the JAX layout ((in, out) matrices), numpy f32."""
     lead = () if k is None else (k,)
 
@@ -69,11 +70,11 @@ def _weights(rng, k=None):
     def vec(m, scale, base=0.0):
         return (base + scale * rng.normal(size=lead + (m,))).astype(np.float32)
 
-    return dict(ln1s=vec(C, 0.2, 1.0), ln1b=vec(C, 0.1), qkv_w=mat(C, 3 * C),
-                qkv_b=vec(3 * C, 0.02), proj_w=mat(C, C), proj_b=vec(C, 0.02),
-                rel_bias=rng.normal(size=lead + (HEADS, N, N)).astype(np.float32),
-                ln2s=vec(C, 0.2, 1.0), ln2b=vec(C, 0.1), w1=mat(C, 4 * C),
-                b1=vec(4 * C, 0.02), w2=mat(4 * C, C), b2=vec(C, 0.02))
+    return dict(ln1s=vec(c, 0.2, 1.0), ln1b=vec(c, 0.1), qkv_w=mat(c, 3 * c),
+                qkv_b=vec(3 * c, 0.02), proj_w=mat(c, c), proj_b=vec(c, 0.02),
+                rel_bias=rng.normal(size=lead + (heads, n, n)).astype(np.float32),
+                ln2s=vec(c, 0.2, 1.0), ln2b=vec(c, 0.1), w1=mat(c, 4 * c),
+                b1=vec(4 * c, 0.02), w2=mat(4 * c, c), b2=vec(c, 0.02))
 
 
 def _port(p, key, dtype=torch.float32):
@@ -91,8 +92,10 @@ def _to_jax_layout(key, g):
     return np.swapaxes(g, -1, -2) if key in MATS else g
 
 
-def _mask():
-    return compute_shift_mask((D, H, W), WINDOW, SHIFT).reshape(*NWIN, N, N)
+def _mask(dims=(D, H, W), window=WINDOW, shift=SHIFT):
+    n = window[0] * window[1] * window[2]
+    nwin = tuple(v // wv for v, wv in zip(dims, window))
+    return compute_shift_mask(dims, window, shift).reshape(*nwin, n, n)
 
 
 def _dp(rng, shape):
@@ -109,24 +112,47 @@ def _close(got, want, tol=TOL, what=""):
 # K4
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
-def test_k4_plain_matches_pallas_bwd(masked):
-    rng = np.random.default_rng(20)
-    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+# K4's geometries: the module's window (2, 3, 3) on (2, 2, 6, 9), and the
+# 16-frame window (8, 7, 7) at C = 64 with 2 heads (N = 392, the windows of
+# K4's rows / columns pair, the (8, 7, 7) relative index unsliced): one
+# window (1, 8, 7, 7) unmasked, (1, 8, 14, 14) with the shift (0, 3, 3)
+# masked. (dims, window, shift, C, heads) by name.
+K4_GEOMS = {
+    "w233": ((B, D, H, W), WINDOW, SHIFT, C, HEADS),
+    "w877": ((1, 8, 7, 7), (8, 7, 7), (0, 3, 3), 64, 2),
+    "w877-shifted": ((1, 8, 14, 14), (8, 7, 7), (0, 3, 3), 64, 2),
+}
+
+
+def _k4_inputs(rng, geom):
+    """x, g, the weights (JAX layout) and (window, shift, heads) of a
+    K4_GEOMS entry, numpy f32."""
+    dims, window, shift, c, heads = K4_GEOMS[geom]
+    x = rng.normal(size=(*dims, c)).astype(np.float32)
     g = rng.normal(size=x.shape).astype(np.float32)
-    p = _weights(rng)
-    mask = _mask() if masked else None
+    p = _weights(rng, c=c, heads=heads, n=window[0] * window[1] * window[2])
+    return x, g, p, window, shift, heads
+
+
+@pytest.mark.parametrize("masked,geom", [
+    (False, "w233"), (True, "w233"), (False, "w877"),
+    (True, "w877-shifted")],
+    ids=["unmasked", "masked", "unmasked-w877", "masked-w877"])
+def test_k4_plain_matches_pallas_bwd(masked, geom):
+    rng = np.random.default_rng(20)
+    x, g, p, window, shift, heads = _k4_inputs(rng, geom)
+    mask = _mask(x.shape[1:4], window, shift) if masked else None
     want = PWA._pallas_bwd_impl(
         jnp.asarray(x), *(jnp.asarray(p[k]) for k in ATTN),
         jnp.asarray(SENTINEL if mask is None else mask), jnp.asarray(g),
-        window=WINDOW, num_heads=HEADS, ln_eps=1e-5, interpret=True,
+        window=window, num_heads=heads, ln_eps=1e-5, interpret=True,
         chunks=2)
     before = WA.window_attention_bwd.launches
     got = WA.attention_vjp(
         torch.from_numpy(x), torch.from_numpy(g),
         *(_port(p, k) for k in ("ln1s", "ln1b", "qkv_w", "qkv_b", "proj_w",
                                 "rel_bias")),
-        None if mask is None else torch.from_numpy(mask), WINDOW, HEADS,
+        None if mask is None else torch.from_numpy(mask), window, heads,
         1e-5, WA.NO_SHIFT)
     assert WA.window_attention_bwd.launches == before   # CPU: plain version
     names = ("x", "ln1s", "ln1b", "qkv_w", "qkv_b", "proj_w", "proj_b",
@@ -135,29 +161,36 @@ def test_k4_plain_matches_pallas_bwd(masked):
         _close(_to_jax_layout(name, a.numpy()), b, what=name)
 
 
-def test_k4_shift_equals_roll_around_it():
+def _k4_shift_equals_roll(geom, seed):
     """K4's in-addressing shift on an unrolled x and g is the JAX model's
     roll(-s) / backward / roll(+s)."""
-    rng = np.random.default_rng(21)
-    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
-    g = rng.normal(size=x.shape).astype(np.float32)
-    p = _weights(rng)
-    mask = _mask()
+    rng = np.random.default_rng(seed)
+    x, g, p, window, shift, heads = _k4_inputs(rng, geom)
+    mask = _mask(x.shape[1:4], window, shift)
     roll = lambda t, s: np.roll(t, s, axis=(1, 2, 3))  # noqa: E731
-    neg = tuple(-s for s in SHIFT)
+    neg = tuple(-s for s in shift)
     want = PWA._pallas_bwd_impl(
         jnp.asarray(roll(x, neg)), *(jnp.asarray(p[k]) for k in ATTN),
-        jnp.asarray(mask), jnp.asarray(roll(g, neg)), window=WINDOW,
-        num_heads=HEADS, ln_eps=1e-5, interpret=True)
+        jnp.asarray(mask), jnp.asarray(roll(g, neg)), window=window,
+        num_heads=heads, ln_eps=1e-5, interpret=True)
     got = WA.attention_vjp(
         torch.from_numpy(x), torch.from_numpy(g),
         *(_port(p, k) for k in ("ln1s", "ln1b", "qkv_w", "qkv_b", "proj_w",
                                 "rel_bias")),
-        torch.from_numpy(mask), WINDOW, HEADS, 1e-5, SHIFT)
-    _close(got[0].numpy(), roll(np.asarray(want[0]), SHIFT), what="dx")
+        torch.from_numpy(mask), window, heads, 1e-5, shift)
+    _close(got[0].numpy(), roll(np.asarray(want[0]), shift), what="dx")
     for name, a, b in zip(("ln1s", "ln1b", "qkv_w", "qkv_b", "proj_w",
                            "proj_b", "rel_bias"), got[1:], want[1:]):
         _close(_to_jax_layout(name, a.numpy()), b, what=name)
+
+
+def test_k4_shift_equals_roll_around_it():
+    _k4_shift_equals_roll("w233", 21)
+
+
+def test_k4_shift_equals_roll_at_the_16_frame_window():
+    """The same at the window (8, 7, 7), shift (0, 3, 3): N = 392."""
+    _k4_shift_equals_roll("w877-shifted", 21)
 
 
 # ---------------------------------------------------------------------------
