@@ -25,16 +25,19 @@ Phases, each raising on failure (the script then exits non-zero):
      ``scaled_dot_product_attention`` on contiguous per-head operands with
      the bias (+ mask) as an additive f32 mask (a yardstick: the port never
      calls it), per call and summed over the 46 calls of a train step, as
-     one JSON line; one shape outside the CTA's range (N = 392) through K6
-     against plain; the 16-frame window (8, 7, 7), N = 392, which the
-     launcher gives the WMMA CTA, at every stage of a 48-clip step (its
-     48-clip output held to plain chunk by chunk of 12 / 24 / 48 / 48
+     one JSON line, each call's CTA named by the library's launch counts
+     (``ops/window_attn.attn_fwd_cta_launches``): attn_fwd_kernel at N =
+     147; K6 at head_dim 64, a shape only the WMMA CTA (window_attn_kernel)
+     takes, against plain; the 16-frame window (8, 7, 7), N = 392, which
+     the launcher gives attn_fwd_big_kernel, at every stage at 6 and 48
+     clips (its output held to plain chunk by chunk of 12 / 24 / 48 / 48
      clips, the output being per window), timed beside its bound and the
      library's attention (rows with ``n`` 392 in the same JSON line); a
      Swin stage at that window with grad mode on (K1 / K3 forward, K6 / K5
-     and K4's rows / columns pair backward) and off (K1 / K3), its launch
-     counts printed as one ``[route]`` line; and the LayerNorm (+ window
-     gather) alone at every stage (``ops/gemm.ln_rows``);
+     and K4's rows / columns pair backward, attn_fwd_big_kernel four times)
+     and off (K1 / K3), its launch counts printed as one ``[route]`` line;
+     and the LayerNorm (+ window gather) alone at every stage
+     (``ops/gemm.ln_rows``);
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      flagship shapes (bf16), at 6 clips (one request) and at the train
      step's 48: K1, K3, K2 (forward); K6 with and without the mask at
@@ -82,7 +85,8 @@ Phases, each raising on failure (the script then exits non-zero):
      step and 2 steps at 16 questions x 3 clips (48 clips) of uint8 frames.
      Every step: a finite loss, parameters of all three groups changed, and
      the launches K1 11, K3 11, K2 2 (forward), K6 22, K5 22, K4 24
-     (backward). Prints the step ms and the peak device memory;
+     (backward), and attn_fwd_kernel 46 times. Prints the step ms and the
+     peak device memory;
   6. training run: the same flagship with ``ln_mlp=True`` through the entry
      a user of the trainer calls: an in-memory dataset made from a seed (64
      train and 16 validation items of 3 x 5 x 224 x 224 x 3 uint8 clips, 32
@@ -105,8 +109,9 @@ Phases, each raising on failure (the script then exits non-zero):
      clips the kernel route against the plain route (loss, per-group
      gradients, a request's logits, the limits of 7 and 4), then a warm-up
      and 2 AgentOE steps at 16 questions x 3 clips on the kernel route, each
-     launching K1 11, K3 11, K2 2, K6 22, K5 22, K4 24; step ms, peak and the
-     card on one ``[frames16]`` line;
+     launching K1 11, K3 11, K2 2, K6 22, K5 22, K4 24 and attn_fwd_big_kernel
+     46 times (window_attn_kernel never); step ms, peak and the card on one
+     ``[frames16]`` line;
   8. cli: the file-based path through the command lines a user runs. A
      TGIF-frameqa directory made from a seed in a temporary directory (8
      GIFs of 12-40 frames written by ``tools/synth.write_gif`` without an
@@ -232,7 +237,7 @@ SHIFT = (0, 3, 3)
 NO_SHIFT = (0, 0, 0)
 # 16-frame clips: the window (8, 7, 7) unclamped, N = 392 at every stage,
 # stages 0-2 shifted by (0, 3, 3) in every other block (K4's rows / columns
-# pair in the backward, the forward's WMMA CTA)
+# pair in the backward, attn_fwd_big_kernel in the forward)
 STAGES16 = (
     (8, 56, 56, 128, 4), (8, 28, 28, 256, 8), (8, 14, 14, 512, 16),
     (8, 7, 7, 1024, 32))
@@ -656,7 +661,12 @@ def phase_attn_core():
                 label = (f"attn_core stage {stage}, {clips} clips, "
                          f"{'masked' if masked else 'unmasked'} ({nwin} "
                          f"windows x {heads} heads, N {n}, head_dim {hd})")
+                WA.attn_fwd_cta_launches(reset=True)
                 got = WA.window_attention_core(qkv, rel, mask, heads)
+                ctas = WA.attn_fwd_cta_launches(reset=True)
+                require(ctas == _only_cta("attn_fwd_kernel"),
+                        f"{label} launched {ctas}, expected attn_fwd_kernel "
+                        "once")
                 err = _compare(label, got, WA.window_attention_core_plain(
                     qkv, rel, mask, heads))
                 del got
@@ -708,7 +718,7 @@ def phase_attn_core():
         out.append({"n": n, "clips": clips, "stage": stage, "masked": masked,
                     "max_abs_err": err, "ms": ms, "bound_ms": bound,
                     "bound_by": by, "library_ms": lib,
-                    "calls_per_step": calls})
+                    "calls_per_step": calls, "cta": "attn_fwd_kernel"})
     for clips, (ms, bound, lib) in sums.items():
         print(f"[attn_core] the {sum(ATTN_CORE_CALLS)} calls of one train step "
               f"at {clips} clips: kernel {ms:.4f} ms, bound {bound:.4f} ms, "
@@ -717,19 +727,28 @@ def phase_attn_core():
         print(f"[attn_core] ln_rows {kind} stage {stage}, {clips} clips: "
               f"{ms:.4f} ms", flush=True)
 
-    # a shape outside the CTA's range: a 16-frame clip's window (8, 7, 7),
-    # N = 392, through K6; the launcher's shape rule takes the WMMA CTA
-    window, shift, c, heads = (8, 7, 7), (4, 3, 3), 128, 4
+    # a shape only the WMMA CTA (window_attn_kernel) takes: head_dim 64 (C
+    # = 256, 4 heads) at the 5-frame window, shifted, through K6
+    c64, heads64 = 256, 4
+    x64 = _seeded((2, 3, 14, 14, c64), gen)
+    p64 = _block_weights(c64, heads64, n, gen, None)
+    mask64 = torch.from_numpy(compute_shift_mask((3, 14, 14), WINDOW, SHIFT))
+    k6 = (x64, *(p64[k] for k in ATTN_KEYS),
+          mask64.reshape(1, 2, 2, n, n).cuda(), WINDOW, heads64, 1e-5, SHIFT)
+    WA.attn_fwd_cta_launches(reset=True)
+    got64 = WA.fused_window_attention(*k6)
+    ctas = WA.attn_fwd_cta_launches(reset=True)
+    _compare(f"K6 at head_dim {c64 // heads64}, window {WINDOW} (N {n}): "
+             f"{_cta_named(ctas)}", got64, WA.window_attention_plain(*k6))
+    require(ctas == _only_cta("window_attn_kernel"),
+            f"K6 at head_dim 64 launched {ctas}, expected window_attn_kernel "
+            "once")
+    del x64, p64, k6, got64
+    window, c, heads = (8, 7, 7), 128, 4
     n_big = window[0] * window[1] * window[2]
     x = _seeded((2, 8, 14, 14, c), gen)
-    p = _block_weights(c, heads, n_big, gen, None)
-    mask = torch.from_numpy(compute_shift_mask((8, 14, 14), window, shift))
-    k6 = (x, *(p[k] for k in ATTN_KEYS), mask.reshape(1, 2, 2, n_big,
-                                                      n_big).cuda(),
-          window, heads, 1e-5, shift)
-    _compare(f"K6 beyond the CTA's range, window {window} (N {n_big})",
-             WA.fused_window_attention(*k6), WA.window_attention_plain(*k6))
-    out += _attn_core_n392(gen)
+    n392_rows, n392_sums = _attn_core_n392(gen)
+    out += n392_rows
     # the same geometry through a Swin stage: with grad mode on and off it
     # runs K1 / K3, and with grad K6 / K5 and K4 (its rows / columns pair)
     # in the backward
@@ -740,8 +759,10 @@ def phase_attn_core():
                        torch.bfloat16, torch.Generator().manual_seed(3)).cuda()
     xs = x.detach().requires_grad_()
     _reset_counts()
+    WA.attn_fwd_cta_launches(reset=True)
     layer(xs, True, DeviceConstants()).float().sum().backward()
     with_grad = _counts()
+    ctas = WA.attn_fwd_cta_launches(reset=True)
     _reset_counts()
     with torch.no_grad():
         layer(x, True, DeviceConstants())
@@ -749,7 +770,10 @@ def phase_attn_core():
     print(f"[route] window {window} (N {n_big}), head_dim {c // heads}: K4 "
           f"takes it {WA.attn_bwd_supported(n_big, c // heads)}; launches, "
           f"forward + backward with grad {with_grad}, forward without grad "
-          f"{without}", flush=True)
+          f"{without}; forward attention CTAs with grad {ctas}", flush=True)
+    require(ctas == _only_cta("attn_fwd_big_kernel", 4),
+            f"a stage at N = 392 launched the forward CTAs {ctas}, expected "
+            "attn_fwd_big_kernel 4 times (K1, K3, K6 twice)")
     want = {"K1": 1, "K3": 1, "K6": 2, "K5": 2, "K4": 2}
     require(all(with_grad[k] == v for k, v in want.items())
             and xs.grad is not None and bool(torch.isfinite(xs.grad).all()),
@@ -759,16 +783,31 @@ def phase_attn_core():
             "a stage at N = 392 did not run K1 / K3 without grad")
     del layer, xs
     print(json.dumps({"attn_core": out}), flush=True)
-    return out, ln_ms
+    return out, ln_ms, n392_sums
+
+
+def _only_cta(cta: str, times: int = 1) -> dict:
+    """The forward attention CTAs' launch counts when only ``cta`` ran."""
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    return {k: (times if k == cta else 0) for k in WA.ATTN_FWD_CTAS}
+
+
+def _cta_named(counts: dict) -> str:
+    """The forward attention CTAs that launched, by name and count."""
+    return ", ".join(f"{k} x{v}" for k, v in counts.items() if v) or "none"
 
 
 def _attn_core_n392(gen):
     """The attention-forward CTA at the 16-frame window (8, 7, 7), N = 392,
-    which the launcher gives the WMMA CTA: at every stage of a 48-clip step
-    (masked and not at stages 0-2), its 48-clip output held to the plain
-    version chunk by chunk of N392_PLAIN_CLIPS clips (the output is per
-    window), timed at 48 clips between two timings of the library's
-    attention, with its bound. Returns attn_core rows (``n`` 392)."""
+    which the launcher gives attn_fwd_big_kernel: at every stage (masked and
+    not at stages 0-2), at 6 clips (a request) and 48 (a step), each call's
+    CTA named by the library's launch counts (that CTA once, the others
+    never), its output held to the plain version chunk by chunk of
+    N392_PLAIN_CLIPS clips (the output is per window), timed between two
+    timings of the library's attention and two of the plain version (the
+    total of its chunk calls), with its bound. Returns attn_core rows (``n``
+    392) and {clips: the sums over the 46 calls of a step}."""
     import torch.nn.functional as F
 
     from lrce_tpu_torch.models.swin3d import compute_shift_mask
@@ -776,68 +815,93 @@ def _attn_core_n392(gen):
 
     dgen = torch.Generator(device="cuda").manual_seed(393)
     n = WINDOW16[0] * WINDOW16[1] * WINDOW16[2]
-    clips, rows, total = TRAIN_CLIPS, [], [0.0, 0.0, 0.0]
-    for stage, (d, h, w, c, heads) in enumerate(STAGES16):
-        nwin_clip = (d // WINDOW16[0]) * (h // WINDOW16[1]) * (w // WINDOW16[2])
-        nwin, hd = clips * nwin_clip, c // heads
-        pc = N392_PLAIN_CLIPS[stage]
-        qkv = _device_seeded((nwin, n, 3 * c), dgen)
-        rel = torch.randn((heads, n, n), generator=gen).cuda()
-        q, k, v = (a.contiguous() for a in qkv.reshape(
-            nwin, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
-        for masked in ((False, True) if stage < 3 else (False,)):
-            mask, lq, lk, lv, add = None, q, k, v, rel[None]
-            if masked:
-                mask = torch.from_numpy(compute_shift_mask(
-                    (d, h, w), WINDOW16, SHIFT)).cuda()
-                lq, lk, lv = (a.reshape(clips, nwin_clip * heads, n, hd)
-                              for a in (q, k, v))
-                add = (rel[None] + mask[:, None]).reshape(
-                    1, nwin_clip * heads, n, n)
-            label = (f"attn_core N 392 stage {stage}, {clips} clips, "
-                     f"{'masked' if masked else 'unmasked'} ({nwin} windows x "
-                     f"{heads} heads, head_dim {hd}, the WMMA CTA)")
-            got, err = WA.window_attention_core(qkv, rel, mask, heads), 0.0
-            for first in range(0, clips, pc):
-                win = slice(first * nwin_clip, (first + pc) * nwin_clip)
-                err = max(err, _compare(
-                    label + f" (clips {first}-{first + pc - 1})", got[win],
-                    WA.window_attention_core_plain(qkv[win], rel, mask,
-                                                   heads)))
-            del got
+    rows, totals = [], {}
+    for clips in (N_CLIPS, TRAIN_CLIPS):
+        total = totals[clips] = {"ms": 0.0, "plain_ms": 0.0,
+                                 "bound_ms": 0.0, "library_ms": 0.0}
+        for stage, (d, h, w, c, heads) in enumerate(STAGES16):
+            nwin_clip = ((d // WINDOW16[0]) * (h // WINDOW16[1])
+                         * (w // WINDOW16[2]))
+            nwin, hd = clips * nwin_clip, c // heads
+            pc = min(clips, N392_PLAIN_CLIPS[stage])
+            qkv = _device_seeded((nwin, n, 3 * c), dgen)
+            rel = torch.randn((heads, n, n), generator=gen).cuda()
+            q, k, v = (a.contiguous() for a in qkv.reshape(
+                nwin, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
+            for masked in ((False, True) if stage < 3 else (False,)):
+                mask, lq, lk, lv, add = None, q, k, v, rel[None]
+                if masked:
+                    mask = torch.from_numpy(compute_shift_mask(
+                        (d, h, w), WINDOW16, SHIFT)).cuda()
+                    lq, lk, lv = (a.reshape(clips, nwin_clip * heads, n, hd)
+                                  for a in (q, k, v))
+                    add = (rel[None] + mask[:, None]).reshape(
+                        1, nwin_clip * heads, n, n)
+                WA.attn_fwd_cta_launches(reset=True)
+                got, err = WA.window_attention_core(qkv, rel, mask, heads), 0.0
+                ctas = WA.attn_fwd_cta_launches(reset=True)
+                require(ctas == _only_cta("attn_fwd_big_kernel"),
+                        f"attn_core at N = 392 launched {ctas}, expected "
+                        "attn_fwd_big_kernel once")
+                label = (f"attn_core N 392 stage {stage}, {clips} clips, "
+                         f"{'masked' if masked else 'unmasked'} ({nwin} "
+                         f"windows x {heads} heads, head_dim {hd}, "
+                         f"{_cta_named(ctas)})")
+                for first in range(0, clips, pc):
+                    win = slice(first * nwin_clip, (first + pc) * nwin_clip)
+                    err = max(err, _compare(
+                        label + (f" (clips {first}-{first + pc - 1})"
+                                 if pc < clips else ""), got[win],
+                        WA.window_attention_core_plain(qkv[win], rel, mask,
+                                                       heads)))
+                del got
 
-            def run_lib():
-                return F.scaled_dot_product_attention(lq, lk, lv,
-                                                      attn_mask=add)
+                def run_lib():
+                    return F.scaled_dot_product_attention(lq, lk, lv,
+                                                          attn_mask=add)
 
-            def run_k():
-                return WA.window_attention_core(qkv, rel, mask, heads)
+                def run_k():
+                    return WA.window_attention_core(qkv, rel, mask, heads)
 
-            lib, k1, k2, lib2 = (_cuda_time_ms(f, 5) for f in (
-                run_lib, run_k, run_k, run_lib))
-            t = nwin * n
-            work = (4 * t * n * c, 2 * t * 4 * c + heads * n * n * 4
-                    + (nwin_clip * n * n * 4 if masked else 0))
-            bound, by = _bound_ms(work)
-            calls = ATTN_CORE_CALLS[stage] // (2 if stage < 3 else 1)
-            ms, lib = (k1 + k2) / 2, (lib + lib2) / 2
-            for i, val in enumerate((ms, bound, lib)):
-                total[i] += calls * val
-            print(f"[attn_core] {label}: kernel {ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}: {work[0] / 1e9:.3f} GFLOP, "
-                  f"{work[1] / 1e6:.3f} MB), library {lib:.4f} ms; {calls} "
-                  "call(s) a step", flush=True)
-            rows.append({"n": n, "clips": clips, "stage": stage,
-                         "masked": masked, "max_abs_err": err, "ms": ms,
-                         "bound_ms": bound, "bound_by": by,
-                         "library_ms": lib, "calls_per_step": calls})
-            del mask, add, lq, lk, lv
-        del qkv, q, k, v
-        torch.cuda.empty_cache()
-    print(f"[attn_core] N = 392, the {sum(ATTN_CORE_CALLS)} calls of one "
-          f"{clips}-clip step of 16 frames: kernel {total[0]:.4f} ms, bound "
-          f"{total[1]:.4f} ms, library {total[2]:.4f} ms", flush=True)
-    return rows
+                def run_p():
+                    return [WA.window_attention_core_plain(
+                        qkv[f * nwin_clip:(f + pc) * nwin_clip], rel, mask,
+                        heads) for f in range(0, clips, pc)]
+
+                iters = 5 if clips == TRAIN_CLIPS else 10
+                p1, lib, k1, k2, lib2, p2 = (_cuda_time_ms(f, i) for f, i in (
+                    (run_p, 1), (run_lib, iters), (run_k, iters),
+                    (run_k, iters), (run_lib, iters), (run_p, 1)))
+                t = nwin * n
+                work = (4 * t * n * c, 2 * t * 4 * c + heads * n * n * 4
+                        + (nwin_clip * n * n * 4 if masked else 0))
+                bound, by = _bound_ms(work)
+                calls = ATTN_CORE_CALLS[stage] // (2 if stage < 3 else 1)
+                ms, lib, plain = (k1 + k2) / 2, (lib + lib2) / 2, (p1 + p2) / 2
+                for key, val in (("ms", ms), ("plain_ms", plain),
+                                 ("bound_ms", bound), ("library_ms", lib)):
+                    total[key] += calls * val
+                print(f"[attn_core] {label}: kernel {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms" + (f" ({clips // pc} calls of {pc} "
+                                           "clips)" if pc < clips else "")
+                      + f", bound {bound:.4f} ms ({by}: {work[0] / 1e9:.3f} "
+                      f"GFLOP, {work[1] / 1e6:.3f} MB), library {lib:.4f} "
+                      f"ms; {calls} call(s) a step", flush=True)
+                rows.append({"n": n, "clips": clips, "stage": stage,
+                             "masked": masked, "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": by, "library_ms": lib,
+                             "calls_per_step": calls,
+                             "cta": "attn_fwd_big_kernel"})
+                del mask, add, lq, lk, lv
+            del qkv, q, k, v
+            torch.cuda.empty_cache()
+        print(f"[attn_core] N = 392, attn_fwd_big_kernel, the "
+              f"{sum(ATTN_CORE_CALLS)} calls of one {clips}-clip step of 16 "
+              f"frames: kernel {total['ms']:.4f} ms, plain "
+              f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} "
+              f"ms, library {total['library_ms']:.4f} ms", flush=True)
+    return rows, totals
 
 
 def phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms):
@@ -1113,6 +1177,7 @@ def phase_kernels():
             del x, g
             torch.cuda.empty_cache()
     n392 = _k4_n392(gen)
+    n392["forward"] = _fwd_n392(gen)
     by_clips[N_CLIPS]["K4"]["max_abs_err"] = max(
         by_clips[N_CLIPS]["K4"]["max_abs_err"], n392.pop("max_abs_err"))
     # the other clip counts the tools give K1 / K3 / K2 (phase_tools), each
@@ -1323,6 +1388,106 @@ def _k4_n392(gen):
               f"{sums['bound_ms']:.4f} ms", flush=True)
     out["max_abs_err"] = worst
     return out
+
+
+def _fwd_n392(gen):
+    """K1, K3, K2, K6 (their attention on attn_fwd_big_kernel) and K5 at the
+    16-frame window (8, 7, 7), N = 392, at a train step's 48 clips: each
+    output held to its plain version, which runs the clips in chunks of
+    N392_PLAIN_CLIPS (the outputs are per clip; its plain time is the total
+    of the chunk calls; K5 in one call), timed beside its bound, summed over
+    a step's calls (K6 half masked). Returns {kernel: sums}."""
+    from lrce_tpu_torch.models.swin3d import compute_shift_mask
+    from lrce_tpu_torch.ops import swin_block as SB
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    dgen = torch.Generator(device="cuda").manual_seed(394)
+    n = WINDOW16[0] * WINDOW16[1] * WINDOW16[2]
+    clips = TRAIN_CLIPS
+    sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "max_abs_err": 0.0, "plain_chunk": []}
+            for k in ("K1", "K3", "K2", "K6", "K5")}
+
+    def chunks(fn, args, pc):
+        """fn over the clips of args[0] in calls of pc clips, joined."""
+        return torch.cat([fn(args[0][f:f + pc], *args[1:])
+                          for f in range(0, clips, pc)])
+
+    def one(kernel, calls, label, run_k, run_p, work, pc):
+        r = sums[kernel]
+        got, want = run_k(), run_p()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        for i, (a, b) in enumerate(zip(got, want)):
+            r["max_abs_err"] = max(r["max_abs_err"], _compare(
+                f"{kernel} N 392 {label} out{i}" + (
+                    f" (plain in chunks of {pc} clips)" if pc < clips
+                    else ""), a, b))
+        del got, want
+        p1, k1, k2, p2 = (_cuda_time_ms(f, i) for f, i in (
+            (run_p, 1), (run_k, 3), (run_k, 3), (run_p, 1)))
+        tk, tp = (k1 + k2) / 2, (p1 + p2) / 2
+        bound, by = _bound_ms(work)
+        r["ms"] += calls * tk
+        r["plain_ms"] += calls * tp
+        r["bound_ms"] += calls * bound
+        r["plain_chunk"].append(pc)
+        print(f"[kernels] {kernel} N 392 {label}: kernel {tk:.4f} ms, plain "
+              f"{tp:.4f} ms, bound {bound:.4f} ms ({by}) per call; {calls} "
+              "call(s) a step", flush=True)
+
+    for stage, (d, h, w, c, heads) in enumerate(STAGES16):
+        pc = N392_PLAIN_CLIPS[stage]
+        x = _device_seeded((clips, d, h, w, c), dgen)
+        p = _block_weights(c, heads, n, gen, None)
+        attn = [p[k] for k in ATTN_KEYS]
+        mlp = [p[k] for k in MLP_KEYS]
+        label = f"stage {stage} {tuple(x.shape)}"
+        kw = dict(stages=STAGES16, window=WINDOW16)
+        if stage == 3:
+            k2 = (x, *attn, None, WINDOW16, heads)
+            one("K2", CALLS_PER_FORWARD["K2"][stage], label,
+                lambda: WA.fused_window_attention_hsplit(*k2),
+                lambda: chunks(WA.window_attention_plain, k2, pc),
+                _work("K2", clips, stage, **kw), pc)
+            del x, p, attn, mlp, k2
+            torch.cuda.empty_cache()
+            continue
+        nwin = (d // WINDOW16[0], h // WINDOW16[1], w // WINDOW16[2])
+        mask = torch.from_numpy(compute_shift_mask(
+            (d, h, w), WINDOW16, SHIFT)).reshape(*nwin, n, n).cuda()
+        half = CALLS_PER_FORWARD["K1"][stage]
+        k1 = (x, *attn, None, *mlp, None, None, WINDOW16, heads)
+        one("K1", half, label, lambda: SB.fused_swin_block(*k1),
+            lambda: chunks(SB.swin_block_plain, k1, pc),
+            _work("K1", clips, stage, **kw), pc)
+        q = _block_weights(c, heads, n, gen, 1)
+        k3 = (x, *(q[k] for k in ATTN_KEYS), mask, *(q[k] for k in MLP_KEYS),
+              None, None, WINDOW16, heads, (SHIFT,))
+        one("K3", half, label + " k=1", lambda: SB.fused_swin_pair(*k3),
+            lambda: chunks(SB.swin_pair_plain, k3, pc),
+            _work("K3", clips, stage, masked=True, **kw), pc)
+        for masked in (False, True):
+            m, sh = (mask, SHIFT) if masked else (None, NO_SHIFT)
+            k6 = (x, *attn, m, WINDOW16, heads, 1e-5, sh)
+            one("K6", half, label + (" masked" if masked else " unmasked"),
+                lambda: WA.fused_window_attention(*k6),
+                lambda: chunks(WA.window_attention_plain, k6, pc),
+                _work("K6", clips, stage, masked=masked, **kw), pc)
+        g = _device_seeded((clips, d, h, w, c), dgen)
+        dp = (torch.rand((clips,), generator=gen) < 0.8).float().cuda() / 0.8
+        k5 = (x, g, *mlp[:5], dp, 1e-5)
+        one("K5", CALLS_PER_BACKWARD["K5"][stage], label + " dp2",
+            lambda: SB.mlp_bwd(*k5), lambda: SB.mlp_bwd_plain(*k5),
+            _work("K5", clips, stage, with_dp=True, **kw), clips)
+        del x, g, p, q, attn, mlp, mask, k1, k3, k6, k5
+        torch.cuda.empty_cache()
+    for k, r in sums.items():
+        print(f"[kernels] {k} at N = 392, the calls of one {clips}-clip step "
+              f"of 16 frames: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms (plain calls of {r['plain_chunk']} "
+              f"clips), bound {r['bound_ms']:.4f} ms", flush=True)
+    return sums
 
 
 def _grads(fn, x, leaves, g):
@@ -1612,6 +1777,7 @@ def _train_per_step() -> dict:
 
 
 def phase_train():
+    from lrce_tpu_torch.ops import window_attn as WA
     from lrce_tpu_torch.train.agent import AgentOE, default_args
 
     per_step = _train_per_step()
@@ -1625,7 +1791,15 @@ def phase_train():
     probes = _probes(model)
 
     def one_step(batch):
-        return _counted_step(agent, batch, per_step, probes)
+        """A counted step; at 5 frames (N = 147) all 46 forward attention
+        calls run attn_fwd_kernel."""
+        WA.attn_fwd_cta_launches(reset=True)
+        out = _counted_step(agent, batch, per_step, probes)
+        ctas = WA.attn_fwd_cta_launches(reset=True)
+        require(ctas == _only_cta("attn_fwd_kernel", sum(ATTN_CORE_CALLS)),
+                f"a 5-frame step launched the forward CTAs {ctas}, expected "
+                f"attn_fwd_kernel {sum(ATTN_CORE_CALLS)} times")
+        return out
 
     loss, ms, _ = one_step(batches[0])
     print(f"[train] warm-up step: loss {loss:.5f}, {ms:.1f} ms", flush=True)
@@ -1880,10 +2054,12 @@ def phase_frames16(card: str):
     loss 1e-2, per-group gradients 1e-1) and a request's logits
     (FORWARD_REL_L2); then AgentOE (the config defaults) takes a warm-up and
     FRAMES16_STEPS steps at 16 questions x 3 clips on the kernel route
-    alone, each with a train step's launches (K4 24): the plain route keeps
+    alone, each with a train step's launches (K4 24) and its 46 forward
+    attention calls all on attn_fwd_big_kernel: the plain route keeps
     f32 (N, N) scores of every window-head, ~58 GB for one saved tensor at
     48 clips. One ``[frames16]`` line: parity, step ms, peak, the card."""
     from lrce_tpu_torch.models.e2e import e2e_forward
+    from lrce_tpu_torch.ops import window_attn as WA
     from lrce_tpu_torch.train.agent import AgentOE, default_args
 
     t0 = time.perf_counter()
@@ -1905,22 +2081,36 @@ def phase_frames16(card: str):
     batches = [_train_batch(rng, FRAMES16_BATCH, 16)
                for _ in range(FRAMES16_STEPS + 1)]
     probes = _probes(model)
-    loss, ms, _ = _counted_step(agent, batches[0], per_step, probes)
+
+    def step(b):
+        """A counted step; every forward attention call of it (24 in the
+        forward, K6's 22 in the backward) on attn_fwd_big_kernel."""
+        WA.attn_fwd_cta_launches(reset=True)
+        out = _counted_step(agent, b, per_step, probes)
+        ctas = WA.attn_fwd_cta_launches(reset=True)
+        require(ctas == _only_cta("attn_fwd_big_kernel",
+                                  sum(ATTN_CORE_CALLS)),
+                f"a 16-frame step launched the forward CTAs {ctas}, expected "
+                f"attn_fwd_big_kernel {sum(ATTN_CORE_CALLS)} times")
+        return (*out, ctas)
+
+    loss, ms, _, _ = step(batches[0])
     print(f"[frames16] warm-up step: loss {loss:.5f}, {ms:.1f} ms", flush=True)
     torch.cuda.reset_peak_memory_stats()
     times = []
     for b in batches[1:]:
-        loss, ms, counts = _counted_step(agent, b, per_step, probes)
+        loss, ms, counts, ctas = step(b)
         times.append(ms)
         print(f"[frames16] step: loss {loss:.5f}, {ms:.1f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
     report = {"parity_worst_grad_rel_l2": worst, "logits_rel_l2": logits_rel,
               "step_ms": times, "peak_gib": peak, "launches": counts,
-              "wall_s": time.perf_counter() - t0}
+              "attn_ctas": ctas, "wall_s": time.perf_counter() - t0}
     print(f"[frames16] {card}; {FRAMES16_STEPS} steps of {FRAMES16_BATCH} "
           f"questions x 3 clips x 16 frames: step ms "
           f"{', '.join(f'{t:.1f}' for t in times)}, peak {peak:.2f} GiB, "
-          f"launches per step {counts}; route parity worst gradient rel L2 "
+          f"launches per step {counts}, forward attention CTAs per step "
+          f"{ctas}; route parity worst gradient rel L2 "
           f"{worst:.4g}, logits rel L2 {logits_rel:.4g}; phase "
           f"{report['wall_s']:.1f} s", flush=True)
     del agent, model
@@ -2885,7 +3075,7 @@ def main() -> int:
     card = phase_device()
     lib = phase_build()
     gemms = phase_gemms()
-    attn_rows, ln_ms = phase_attn_core()
+    attn_rows, ln_ms, attn_n392 = phase_attn_core()
     (results, results48, per_call, call_ms, back_half_ms,
      n392) = phase_kernels()
     phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms)
@@ -2945,6 +3135,20 @@ def main() -> int:
             for clips, key in ((N_CLIPS, "clips6_n392"),
                                (TRAIN_CLIPS, "clips48_n392")):
                 kernels[-1][key] = n392[clips]
+        elif k in n392["forward"]:
+            # the 48-clip sums at the 16-frame window, N = 392
+            kernels[-1]["clips48_n392"] = n392["forward"][k]
+        if k == "K6":
+            # the attention-forward CTA that K1 / K3 / K2 / K6 share at the
+            # 16-frame window (attn_fwd_big_kernel), alone: the 46 calls of
+            # a step at 6 and 48 clips, and its launches in a 16-frame step
+            for clips, key in ((N_CLIPS, "attn_core_clips6_n392"),
+                               (TRAIN_CLIPS, "attn_core_clips48_n392")):
+                kernels[-1][key] = {
+                    **{x: attn_n392[clips][x]
+                       for x in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                    "launches_per_16_frame_step":
+                        frames16["attn_ctas"]["attn_fwd_big_kernel"]}
     print(f"[summary] {card}; build {lib.build_seconds:.1f} s; request "
           f"latency ms kernel route {lat_k}, plain route {lat_p}, with K7 "
           f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "
@@ -2954,7 +3158,10 @@ def main() -> int:
           f"step ms {[round(t, 1) for t in frames16['step_ms']]} at "
           f"{FRAMES16_BATCH * 3} clips, peak {frames16['peak_gib']:.2f} GiB, "
           f"K4 at N = 392 {n392[TRAIN_CLIPS]['ms']:.2f} ms a step (bound "
-          f"{n392[TRAIN_CLIPS]['bound_ms']:.2f}); bench "
+          f"{n392[TRAIN_CLIPS]['bound_ms']:.2f}), the forward attention CTA "
+          f"at N = 392 {attn_n392[TRAIN_CLIPS]['ms']:.2f} ms a step (bound "
+          f"{attn_n392[TRAIN_CLIPS]['bound_ms']:.2f}, library "
+          f"{attn_n392[TRAIN_CLIPS]['library_ms']:.2f}); bench "
           f"{tools['bench']['value']} clips/s; CLIs: train "
           f"{cli['train_s']:.2f} s, eval {cli['eval_s']:.2f} s, step ms "
           f"{[round(t, 1) for t in cli['step_ms']]}, loader-wait share "

@@ -73,25 +73,40 @@
 //     straight from the accumulator registers (the m16n8 result of two key
 //     tiles is the m16k16 A operand of the next product), so P and dS never
 //     reach shared memory;
-//   - attn_bwd_cols_kernel, a CTA per (window group, head, 80 keys), a warp
-//     per 16 keys; q and dctx of the whole window and the row statistics in
-//     shared memory. For 16 queries at a time it forms S^T = k q^T and
-//     dP^T = v dctx^T, P^T and dS^T from the statistics, and accumulates
-//     dv = pb^T dctx and dk = bf16(dS)^T q. Its 80 keys' columns of drel
-//     (N x 80 f32, rows padded to 84 floats: conflict-free fragment adds)
-//     stay in shared memory across the windows it walks, each element owned
-//     by one thread, and leave once per CTA;
+//   - attn_bwd_cols_kernel, a CTA per (window group, head, 80 keys): two
+//     sets of five warps, a warp per 16 keys in each set, the sets taking
+//     alternate blocks of 16 queries. q and dctx of the window, the row
+//     statistics and the labels stream into shared memory block by block
+//     (a set refills a block's slot with the next window's block as soon
+//     as it is done with it). For 16 queries at a time a warp forms S^T =
+//     k q^T and dP^T = v dctx^T, P^T and dS^T from the statistics, and
+//     accumulates dv = pb^T dctx and dk = bf16(dS)^T q; at the end of a
+//     window set 1's f32 dk / dv are added to set 0's (in that order) and
+//     leave once. Its 80 keys' columns of drel (N x 80 f32, rows padded to
+//     84 floats: conflict-free fragment adds) stay in shared memory across
+//     the windows it walks, each element owned by one thread of the set
+//     whose queries it belongs to, and leave once per CTA. Its first
+//     version (one set of five warps, the window's tiles loaded and waited
+//     for at each window's start, the bias read from L2 where each logit
+//     needed it) ran 23x its bound at N = 392: one CTA of five warps an SM
+//     left the card waiting on latency. Its expf became ex2.approx (2 ulp),
+//     10-17% a call;
 //   - the bias gradient's partials are per (window group, 80-row block):
 //     the rows CTA writes the q columns, the columns CTA the k and v
 //     columns. All f32 sums run in a fixed order: no atomics, and two calls
 //     give the same bits;
-//   - the rel_bias (0.61 MB a head at N = 392) is read element by element
-//     from L2, once per (window, head) and pass; the shift mask by its
+//   - the rel_bias (0.61 MB a head at N = 392) is read from L2 once per
+//     (window, head), CTA and pass, into registers a 16-wide block ahead of
+//     its use (8 values a lane; read where it was needed, it left each step
+//     waiting on L2: the rows CTA was 27% slower); the shift mask by its
 //     region labels (Np ints a window, as attn_fwd.cu reads it): densely,
 //     a clip's 64 masks at stage 0 are 39 MB, read three times a window;
 //   - the pair does ten 16-row products per (window, head) where the
-//     ten-warp CTA does six (S and dP once more in each CTA): correctness
-//     first, speed is later work.
+//     ten-warp CTA does six (S and dP once more in each CTA). On an NVIDIA
+//     H100 80GB HBM3 at 700 W, the 24 calls of a 48-clip step of 16 frames
+//     take ~190 ms against a 16.2 ms bound: the rows CTA ~64, the columns
+//     CTA ~92 (tools/k4_bench.py); both wait on latency and on shared
+//     memory, not on the tensor cores.
 #include "swin_common.cuh"
 
 #include "hopper.cuh"
@@ -110,6 +125,8 @@ constexpr int BW_BIG_MAX_NP = 400;         // padded tokens
 constexpr int BL_WARPS = 5;                // a warp per 16 rows of a block
 constexpr int BL_ROWS = 16 * BL_WARPS;     // query rows or keys of a CTA
 constexpr int BL_DREL_LD = BL_ROWS + 4;    // floats a row of the drel slice
+constexpr int BC_SETS = 2;                 // the columns CTA's warp sets
+constexpr int BC_WARPS = BL_WARPS * BC_SETS;
 
 size_t bwd_smem_bytes(int Np, int hd) {
   return (size_t)8 * Np * hd * sizeof(bf16) +          // q k v dctx, twice
@@ -128,10 +145,10 @@ size_t rows_smem_bytes(int Np, int hd) {
 
 size_t cols_smem_bytes(int Np, int hd) {
   return (size_t)2 * Np * hd * sizeof(bf16) +        // q, dctx of the window
-         (size_t)2 * BL_ROWS * hd * sizeof(bf16) +   // k, v of the block
          (size_t)Np * sizeof(float4) +               // row statistics
          (size_t)Np * sizeof(int) +                  // mask labels
          (size_t)Np * BL_DREL_LD * sizeof(float) +   // drel slice
+         (size_t)BL_ROWS * 2 * hd * sizeof(float) +  // set 1's dk, dv
          (size_t)BL_WARPS * 2 * hd * sizeof(float);  // dk, dv column sums
 }
 
@@ -545,6 +562,15 @@ __device__ __forceinline__ void load_labels(uint32_t dst, const int* src,
     cp_async16(dst + i * 16, src + 4 * i, true);
 }
 
+// 2^x by ex2.approx (2 ulp): exp(v - m) is 2^(v log2 e - m log2 e), one
+// fused multiply-add and one MUFU op where expf takes eight instructions
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -626,8 +652,21 @@ attn_bwd_rows_kernel(const bf16* __restrict__ qkv,
         ldsm_x4(aq[k], qs + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
         ldsm_x4(ag[k], gs + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
       }
+      // this lane's bias for keys kk .. kk + 15 (0 past N), loaded a step
+      // ahead of its use
+      auto load_bias = [&](float (&bv)[2][4], int kk) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r_lo + (e >> 1) * 8,
+                      col = kk + 8 * j + 2 * t + (e & 1);
+            bv[j][e] = col < N && r < N ? bias_h[(long long)r * N + col] : 0.f;
+          }
+      };
       // S (+ bias, mask; -inf past N) and dP for keys kk .. kk + 15
-      auto scores = [&](float (&s)[2][4], float (&d)[2][4], int kk) {
+      auto scores = [&](float (&s)[2][4], float (&d)[2][4], int kk,
+                        const float (&bv)[2][4]) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -648,8 +687,7 @@ attn_bwd_rows_kernel(const bf16* __restrict__ qkv,
             if (col >= N)
               s[j][e] = -INFINITY;
             else if (r < N)
-              s[j][e] += bias_h[(long long)r * N + col] +
-                         mf.value(lab, r, col, N);
+              s[j][e] += bv[j][e] + mf.value(lab, r, col, N);
           }
         }
       };
@@ -658,9 +696,16 @@ attn_bwd_rows_kernel(const bf16* __restrict__ qkv,
       // dP, online over the key blocks, then across the quad's lanes
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
             rsum[2] = {0.f, 0.f};
+      float bcur[2][4];
+      load_bias(bcur, 0);
       for (int kk = 0; kk < Np; kk += 16) {
-        float s[2][4], d[2][4];
-        scores(s, d, kk);
+        float s[2][4], d[2][4], bnxt[2][4];
+        load_bias(bnxt, kk + 16 < Np ? kk + 16 : 0);
+        scores(s, d, kk, bcur);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bcur[j][e] = bnxt[j][e];
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           float mx = m[hf];
@@ -712,9 +757,15 @@ attn_bwd_rows_kernel(const bf16* __restrict__ qkv,
       for (int n = 0; n < CH; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc_c[n][e] = acc_q[n][e] = 0.f;
+      load_bias(bcur, 0);
       for (int kk = 0; kk < Np; kk += 16) {
-        float s[2][4], d[2][4];
-        scores(s, d, kk);
+        float s[2][4], d[2][4], bnxt[2][4];
+        load_bias(bnxt, kk + 16 < Np ? kk + 16 : 0);
+        scores(s, d, kk, bcur);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bcur[j][e] = bnxt[j][e];
         uint32_t ap[4], as[4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -753,13 +804,53 @@ attn_bwd_rows_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-// The columns CTA of the pair: grid (groups, nH, big_blocks(Np)), BL_WARPS
-// warps; runs after the rows CTA, whose stats it reads. Writes the dk and
-// dv columns of dqkv for its keys, its keys' columns of drel summed over its
-// windows into prel[grp][h] (N x N), and its dk, dv column sums into row
-// (grp * blocks + blk) of pb.
+// Waits until at most n (0 .. 12) of this thread's cp.async groups are
+// still in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 12: cp_async_wait<12>(); break;
+    case 11: cp_async_wait<11>(); break;
+    case 10: cp_async_wait<10>(); break;
+    case 9: cp_async_wait<9>(); break;
+    case 8: cp_async_wait<8>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
+// Arrival at named barrier `id` without waiting for it (the producer's
+// side of a producer / consumer pair of warps; named_bar_sync waits).
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The columns CTA of the pair: grid (groups, nH, big_blocks(Np)), BC_WARPS
+// warps in BC_SETS sets of BL_WARPS; runs after the rows CTA, whose stats it
+// reads. Writes the dk and dv columns of dqkv for its keys, its keys'
+// columns of drel summed over its windows into prel[grp][h] (N x N), and its
+// dk, dv column sums into row (grp * blocks + blk) of pb.
+//   - warp w of set s takes keys key0 + 16 w .. + 15 and the query blocks
+//     qb = s, s + 2, s + 4, ... of every window, so that the two sets add
+//     into disjoint rows of the one N x 80 drel slice; at the end of a
+//     window set 1 hands its f32 dk / dv through shared memory to set 0,
+//     which adds them to its own (set 0 first) and stores them once;
+//   - q, dctx, the statistics and the labels stream in per query block: a
+//     set refills the slot of the block it finished with the same block of
+//     its next window, so a window's copies are in flight while the one
+//     before it multiplies (cp.async groups, one a block, waited for in
+//     order; a set's own named barrier per block);
+//   - k and v of the CTA's keys go from device memory straight into the
+//     warps' A fragments, the next window's while this one runs;
+//   - the bias of the next query block is loaded into registers while this
+//     one multiplies (8 values a thread), not read when it is needed.
 template <int HD>
-__global__ void __launch_bounds__(BL_WARPS * 32)
+__global__ void __launch_bounds__(BC_WARPS * 32, 1)
 attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
                      const bf16* __restrict__ dctx,
                      const float* __restrict__ rel_bias,
@@ -777,131 +868,264 @@ attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int kw = warp % BL_WARPS, set = warp / BL_WARPS;
+  const int st = tid % (BL_WARPS * 32);          // thread within its set
   const int grp = blockIdx.x, h = blockIdx.y, blk = blockIdx.z;
   const int nH = gridDim.y, nblk = gridDim.z;
   const int key0 = blk * BL_ROWS;
-  const int full = Np * HD * 2, own = BL_ROWS * HD * 2;   // tile bytes
-  const uint32_t qs = smem_u32(smem), gs = qs + full, ks = gs + full,
-                 vs = ks + own, ss = vs + own, ls = ss + Np * sizeof(float4);
-  const float4* st = reinterpret_cast<const float4*>(smem + 2 * full +
-                                                     2 * own);
-  const int* lab = reinterpret_cast<const int*>(smem + 2 * full + 2 * own +
+  const int full = Np * HD * 2;                  // tile bytes
+  const int nqb = Np >> 4;                       // query blocks of 16
+  const int nbs = (nqb - set + 1) >> 1;          // this set's blocks
+  const uint32_t qs = smem_u32(smem), gs = qs + full, ss = gs + full,
+                 ls = ss + Np * sizeof(float4);
+  const float4* stq = reinterpret_cast<const float4*>(smem + 2 * full);
+  const int* lab = reinterpret_cast<const int*>(smem + 2 * full +
                                                 Np * sizeof(float4));
-  float* drs = reinterpret_cast<float*>(smem + 2 * full + 2 * own +
+  float* drs = reinterpret_cast<float*>(smem + 2 * full +
                                         Np * (sizeof(float4) + sizeof(int)));
-  float* wsum = drs + Np * BL_DREL_LD;
-  for (int i = tid; i < Np * BL_DREL_LD; i += blockDim.x) drs[i] = 0.f;
-  for (int i = tid; i < BL_WARPS * 2 * HD; i += blockDim.x) wsum[i] = 0.f;
+  float4* xk = reinterpret_cast<float4*>(drs + Np * BL_DREL_LD);
+  float* wsum = reinterpret_cast<float*>(xk + BL_WARPS * 2 * CH * 32);
 
-  const float* bias_h = rel_bias + (long long)h * N * N;
-  const int kr_lo = key0 + 16 * warp + g;   // this lane's keys: kr_lo, + 8
-  const int a_row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_row = lane & 7, b_ch = (lane >> 3) & 1;
-  const int k_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const bool active = key0 + 16 * warp < N;
-
-  for (long long win = grp; win < nwin_total; win += groups) {
+  // the copies of query block qb of window win, by this set's threads
+  auto load_block = [&](long long win, int qb) {
+    constexpr int TILE_COPIES = 2 * 16 * CH;  // q and dctx rows
     const bf16* qrow = qkv + win * N * (3LL * C) + h * HD;
     const bf16* grow = dctx + win * N * (long long)C + h * HD;
-    const float4* srow = stats + ((long long)win * nH + h) * Np;
-    for (int idx = tid; idx < Np * CH; idx += blockDim.x) {
-      const int tok = idx / CH, c = idx % CH;
-      const bool ok = tok < N;
-      const uint32_t dst = tok_off<HD>(tok, c);
-      cp_async16(qs + dst, ok ? qrow + (long long)tok * 3 * C + c * 8 : qkv,
-                 ok);
-      cp_async16(gs + dst, ok ? grow + (long long)tok * C + c * 8 : dctx, ok);
+    const int r0 = 16 * qb;
+    for (int idx = st; idx < TILE_COPIES + 16 + 4; idx += BL_WARPS * 32) {
+      if (idx < TILE_COPIES) {
+        const int which = idx / (16 * CH), r = (idx / CH) % 16, c = idx % CH;
+        const int tok = r0 + r;
+        const bool ok = tok < N;
+        const bf16* src = which ? grow + (long long)tok * C + c * 8
+                                : qrow + (long long)tok * 3 * C + c * 8;
+        cp_async16((which ? gs : qs) + tok_off<HD>(tok, c), ok ? src : qkv,
+                   ok);
+      } else if (idx < TILE_COPIES + 16) {
+        const int r = r0 + idx - TILE_COPIES;
+        cp_async16(ss + (uint32_t)r * 16u,
+                   stats + ((long long)win * nH + h) * Np + r, true);
+      } else if (labels) {
+        const int r = r0 + 4 * (idx - TILE_COPIES - 16);
+        cp_async16(ls + r * 4, labels + (long long)(win % nwin_clip) * Np + r,
+                   true);
+      }
     }
-    for (int idx = tid; idx < BL_ROWS * CH; idx += blockDim.x) {
-      const int r = idx / CH, c = idx % CH, tok = key0 + r;
-      const bool ok = tok < N;
-      const uint32_t dst = tok_off<HD>(r, c);
-      const bf16* src = qrow + (long long)tok * 3 * C + c * 8;
-      cp_async16(ks + dst, ok ? src + C : qkv, ok);
-      cp_async16(vs + dst, ok ? src + 2 * C : qkv, ok);
+  };
+  // pre-scales the q rows of block qb that this thread copied, once its
+  // copies have landed
+  auto scale_block = [&](int qb) {
+    for (int idx = st; idx < 16 * CH; idx += BL_WARPS * 32) {
+      uint4* p = reinterpret_cast<uint4*>(
+          smem + tok_off<HD>(16 * qb + idx / CH, idx % CH));
+      uint4 v = *p;
+      bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
+      *p = v;
     }
-    for (int r = tid; r < Np; r += blockDim.x)
-      cp_async16(ss + (uint32_t)r * 16u, srow + r, true);
-    const MaskForm mf = mask_form(mask, labels, mask_off, win, nwin_clip, N);
-    if (mf.by_label)
-      load_labels(ls, labels + (long long)(win % nwin_clip) * Np, Np);
-    cp_async_commit();
-    cp_async_wait<0>();
-    scale_tile<HD>(smem, Np, scale);
-    __syncthreads();  // the window's tiles and statistics are complete
+  };
 
-    if (active) {
-      uint32_t ak[KS][4], av[KS][4];
-#pragma unroll
-      for (int k = 0; k < KS; ++k) {
-        ldsm_x4(ak[k], ks + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
-        ldsm_x4(av[k], vs + tok_off<HD>(a_row, 2 * k + (lane >> 4)));
-      }
-      float acc_k[CH][4], acc_v[CH][4];
-#pragma unroll
-      for (int n = 0; n < CH; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-      for (int qb = 0; qb < Np; qb += 16) {
-        // S^T and dP^T for this warp's 16 keys and queries qb .. qb + 15
-        float s[2][4], d[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.f;
-#pragma unroll
-          for (int k = 0; k < KS; ++k) {
-            uint32_t bb[2];
-            const uint32_t o = tok_off<HD>(qb + 8 * j + b_row, 2 * k + b_ch);
-            ldsm_x2(bb, qs + o);
-            mma_bf16(s[j], ak[k], bb[0], bb[1]);
-            ldsm_x2(bb, gs + o);
-            mma_bf16(d[j], av[k], bb[0], bb[1]);
-          }
-        }
-        uint32_t ap[4], as[4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            float p[2], ds[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const int e = 2 * hf + i;
-              const int kr = kr_lo + hf * 8, qc = qb + 8 * j + 2 * t + i;
-              p[i] = ds[i] = 0.f;
-              if (kr < N && qc < N) {
-                const float4 sq = st[qc];
-                const float v = s[j][e] + (bias_h[(long long)qc * N + kr] +
-                                           mf.value(lab, qc, kr, N));
-                p[i] = expf(v - sq.x) * sq.y;
-                ds[i] = p[i] * (d[j][e] - sq.z);
-              }
-              drs[qc * BL_DREL_LD + 16 * warp + g + hf * 8] += ds[i];
-            }
-            ap[2 * j + hf] = pack_bf16(p[0], p[1]);
-            as[2 * j + hf] = pack_bf16(ds[0], ds[1]);
-          }
-#pragma unroll
-        for (int n2 = 0; n2 < KS; ++n2) {
-          uint32_t bg[4], bq[4];
-          const uint32_t bo = tok_off<HD>(qb + k_row, 2 * n2 + (lane >> 4));
-          ldsm_x4_t(bg, gs + bo);
-          ldsm_x4_t(bq, qs + bo);
-          mma_bf16(acc_v[2 * n2], ap, bg[0], bg[1]);
-          mma_bf16(acc_v[2 * n2 + 1], ap, bg[2], bg[3]);
-          mma_bf16(acc_k[2 * n2], as, bq[0], bq[1]);
-          mma_bf16(acc_k[2 * n2 + 1], as, bq[2], bq[3]);
-        }
-      }
-      bf16* out = dqkv + win * N * (3LL * C) + h * HD;
-      float* ws = wsum + warp * 2 * HD;
-      store_rows<HD>(acc_k, 1.f, out + C, 3LL * C, kr_lo, N, ws, lane);
-      store_rows<HD>(acc_v, 1.f, out + 2 * C, 3LL * C, kr_lo, N, ws + HD,
-                     lane);
-    }
-    __syncthreads();  // every warp is done with this window's tiles
+  // the set's walk is a sequence of items (window, i), block qb = 2 i +
+  // set; item k's copies are cp.async group k of this thread: the first
+  // nbs - 1 here, item k + nbs - 1's when item k starts
+  {
+    int i = 0;
+    for (long long win = grp; win < nwin_total && i < nbs - 1; ++i)
+      load_block(win, 2 * i + set), cp_async_commit();
+    for (; i < nbs - 1; ++i) cp_async_commit();
   }
+  for (int i = tid; i < Np * BL_DREL_LD; i += blockDim.x) drs[i] = 0.f;
+  for (int i = tid; i < BL_WARPS * 2 * HD; i += blockDim.x) wsum[i] = 0.f;
+  __syncthreads();
+
+  const float* bias_h = rel_bias + (long long)h * N * N;
+  const int kr_lo = key0 + 16 * kw + g;    // this lane's keys: kr_lo, + 8
+  const int b_row = lane & 7, b_ch = (lane >> 3) & 1;
+  const int k_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const bool active = key0 + 16 * kw < N;  // warp-uniform
+
+  // k and v of the warp's 16 keys as A fragments, straight from qkv
+  auto load_kv = [&](long long win, uint32_t (&ak)[KS][4],
+                     uint32_t (&av)[KS][4]) {
+    const bf16* base = qkv + win * N * (3LL * C) + h * HD;
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = kr_lo + (i & 1) * 8, c = 16 * k + 2 * t + (i >> 1) * 8;
+        const bf16* p = base + (long long)r * 3 * C + c;
+        ak[k][i] = r < N ? *reinterpret_cast<const uint32_t*>(p + C) : 0u;
+        av[k][i] = r < N ? *reinterpret_cast<const uint32_t*>(p + 2 * C) : 0u;
+      }
+  };
+  // this lane's bias values of query block qb: (j, hf, i) -> query 16 qb +
+  // 8 j + 2 t + i, key kr_lo + 8 hf
+  auto load_bias = [&](int qb, float (&bv)[2][2][2]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int kr = kr_lo + hf * 8, qc = 16 * qb + 8 * j + 2 * t + i;
+          bv[j][hf][i] =
+              kr < N && qc < N ? bias_h[(long long)qc * N + kr] : 0.f;
+        }
+  };
+
+  uint32_t ak[KS][4], av[KS][4], nk[KS][4], nv[KS][4];
+  float bias_cur[2][2][2];
+  if (active && grp < nwin_total) {
+    load_kv(grp, nk, nv);
+    load_bias(set, bias_cur);
+  }
+  bool handed = false;  // set 1 has handed set 0 a window's dk / dv
+  for (long long win = grp; win < nwin_total; win += groups) {
+    const MaskForm mf = mask_form(mask, labels, mask_off, win, nwin_clip, N);
+    const bool more = win + groups < nwin_total;
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ak[k][i] = nk[k][i];
+          av[k][i] = nv[k][i];
+        }
+      if (more) load_kv(win + groups, nk, nv);
+    }
+    // the labels of this lane's two keys (a query's come with its block)
+    int klab[2] = {0, 0};
+    if (active && mf.by_label)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        klab[hf] = labels[(long long)(win % nwin_clip) * Np + kr_lo + 8 * hf];
+    float acc_k[CH][4], acc_v[CH][4];
+#pragma unroll
+    for (int n = 0; n < CH; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+    for (int i = 0; i < nbs; ++i) {
+      const int qb = 2 * i + set;
+      cp_async_wait_upto(nbs - 2);
+      scale_block(qb);
+      named_bar_sync(1 + set, BL_WARPS * 32);  // block qb is in, i - 1 done
+      // refill: block nbs - 1 of this window at i = 0, else block i - 1 of
+      // the next window
+      if (i == 0)
+        load_block(win, 2 * (nbs - 1) + set);
+      else if (more)
+        load_block(win + groups, qb - 2);
+      cp_async_commit();
+      if (!active) continue;
+
+      // the next block's bias (the first of the next window after the last)
+      float bias_nxt[2][2][2];
+      load_bias(i + 1 < nbs ? qb + 2 : set, bias_nxt);
+
+      // S^T and dP^T for this warp's 16 keys and queries 16 qb .. + 15
+      float s[2][4], d[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.f;
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          uint32_t bb[2];
+          const uint32_t o = tok_off<HD>(16 * qb + 8 * j + b_row, 2 * k + b_ch);
+          ldsm_x2(bb, qs + o);
+          mma_bf16(s[j], ak[k], bb[0], bb[1]);
+          ldsm_x2(bb, gs + o);
+          mma_bf16(d[j], av[k], bb[0], bb[1]);
+        }
+      }
+      uint32_t ap[4], as[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float p[2], ds[2];
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int e = 2 * hf + ii;
+            const int kr = kr_lo + hf * 8, qc = 16 * qb + 8 * j + 2 * t + ii;
+            p[ii] = ds[ii] = 0.f;
+            if (kr < N && qc < N) {
+              const float4 sq = stq[qc];
+              float madd = 0.f;
+              if (mf.dense)
+                madd = mf.dense[(long long)qc * N + kr];
+              else if (mf.by_label)
+                madd = lab[qc] == klab[hf] ? 0.f : mf.off;
+              const float v = s[j][e] + (bias_cur[j][hf][ii] + madd);
+              p[ii] = ex2_approx(fmaf(v, kLog2e, -sq.x * kLog2e)) * sq.y;
+              ds[ii] = p[ii] * (d[j][e] - sq.z);
+            }
+            drs[qc * BL_DREL_LD + 16 * kw + g + hf * 8] += ds[ii];
+          }
+          ap[2 * j + hf] = pack_bf16(p[0], p[1]);
+          as[2 * j + hf] = pack_bf16(ds[0], ds[1]);
+        }
+#pragma unroll
+      for (int n2 = 0; n2 < KS; ++n2) {
+        uint32_t bg[4], bq[4];
+        const uint32_t bo = tok_off<HD>(16 * qb + k_row, 2 * n2 + (lane >> 4));
+        ldsm_x4_t(bg, gs + bo);
+        ldsm_x4_t(bq, qs + bo);
+        mma_bf16(acc_v[2 * n2], ap, bg[0], bg[1]);
+        mma_bf16(acc_v[2 * n2 + 1], ap, bg[2], bg[3]);
+        mma_bf16(acc_k[2 * n2], as, bq[0], bq[1]);
+        mma_bf16(acc_k[2 * n2 + 1], as, bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+            bias_cur[j][hf][ii] = bias_nxt[j][hf][ii];
+    }
+
+    // set 1's dk / dv into set 0's, set 0's first; out once as bf16
+    float4* x = xk + kw * 2 * CH * 32 + lane;
+    if (set == 1) {
+      // set 0 has read the last window's
+      if (handed) named_bar_sync(4, BC_WARPS * 32);
+      if (active)
+#pragma unroll
+        for (int n = 0; n < CH; ++n) {
+          x[(2 * n) * 32] =
+              make_float4(acc_k[n][0], acc_k[n][1], acc_k[n][2], acc_k[n][3]);
+          x[(2 * n + 1) * 32] =
+              make_float4(acc_v[n][0], acc_v[n][1], acc_v[n][2], acc_v[n][3]);
+        }
+      named_bar_arrive(3, BC_WARPS * 32);
+      handed = true;
+    } else {
+      named_bar_sync(3, BC_WARPS * 32);
+      if (active) {
+#pragma unroll
+        for (int n = 0; n < CH; ++n) {
+          const float4 uk = x[(2 * n) * 32], uv = x[(2 * n + 1) * 32];
+          acc_k[n][0] += uk.x; acc_k[n][1] += uk.y;
+          acc_k[n][2] += uk.z; acc_k[n][3] += uk.w;
+          acc_v[n][0] += uv.x; acc_v[n][1] += uv.y;
+          acc_v[n][2] += uv.z; acc_v[n][3] += uv.w;
+        }
+        bf16* out = dqkv + win * N * (3LL * C) + h * HD;
+        float* ws = wsum + kw * 2 * HD;
+        store_rows<HD>(acc_k, 1.f, out + C, 3LL * C, kr_lo, N, ws, lane);
+        store_rows<HD>(acc_v, 1.f, out + 2 * C, 3LL * C, kr_lo, N, ws + HD,
+                       lane);
+      }
+      named_bar_arrive(4, BC_WARPS * 32);
+    }
+  }
+  if (set == 1 && handed) named_bar_sync(4, BC_WARPS * 32);
+  cp_async_wait<0>();
+  __syncthreads();  // every drel add and column sum is in
 
   for (int i = tid; i < 2 * HD; i += blockDim.x) {
     float v = 0.f;
@@ -959,7 +1183,7 @@ int launch_attn_bwd(const bf16* qkv, const bf16* dctx, const float* rel_bias,
       nwin_total, nwin_clip, N, Np, C, groups, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_cols_kernel<HD><<<grid, BL_WARPS * 32, s_cols, stream>>>(
+  attn_bwd_cols_kernel<HD><<<grid, BC_WARPS * 32, s_cols, stream>>>(
       qkv, dctx, rel_bias, mask, labels, mask_off, stats, dqkv, prel, pb,
       nwin_total, nwin_clip, N, Np, C, groups, scale);
   return (int)cudaGetLastError();

@@ -209,8 +209,9 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // (b) Window attention for any head_dim that is a multiple of 16 and any
-// window whose tiles fit shared memory (head_dim 16 or 32 with at most 160
-// tokens runs attn_fwd_kernel of attn_fwd.cu instead: launch_attn chooses).
+// window whose tiles fit shared memory (head_dim 16 or 32 with at most 400
+// tokens runs attn_fwd_kernel or attn_fwd_big_kernel of attn_fwd.cu
+// instead: launch_attn chooses).
 // qkv: (nwin_total*N, 3C) bf16 in window order, packed
 // [q | k | v] with head h at columns h*hd. One CTA per (window, head):
 // q, k, v of the window sit in shared memory padded to Np = ceil16(N) rows.

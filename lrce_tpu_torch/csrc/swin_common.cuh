@@ -5,8 +5,9 @@
 //       same gather without the LayerNorm;
 //   (b) window attention: for head_dim 16 or 32 and windows of at most 160
 //       tokens a CTA per (window group, head) on mma.sync with S and P in
-//       registers (attn_fwd.cu); for other shapes one WMMA CTA per (window,
-//       head) (swin_common.cu);
+//       registers, for 161-400 tokens a CTA per (window group, head, 80
+//       query rows) that streams the keys (attn_fwd.cu); for other shapes
+//       one WMMA CTA per (window, head) (swin_common.cu);
 //   (c) a bf16 tensor-core GEMM (a persistent, warp-specialised CTA: TMA
 //       into a ring of stages, two consumer warpgroups on wgmma in turns,
 //       f32 accumulate in registers), out = A . W^T or A . B, with epilogues
@@ -171,8 +172,9 @@ int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
 //     (i, j) where labels[w][i] != labels[w][j] and nothing elsewhere; a NaN
 //     in mask_off[w] says that w's mask is not of that form and is read as
 //     it lies. Both null: every window reads the dense mask. groups: window
-//     groups of attn_fwd_kernel's grid, 1 .. nwin_total (unused where the
-//     shape takes launch_attn_wmma, see attn_fwd.cu).
+//     groups of the grid of attn_fwd_kernel or attn_fwd_big_kernel, 1 ..
+//     nwin_total (unused where the shape takes launch_attn_wmma, see
+//     attn_fwd.cu).
 int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
                 const float* mask, const int* mask_labels,
                 const float* mask_off, long long nwin_total, int nwin_clip,

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "lrce_window_attn_fwd": (
         [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 10 + [_I] + [_P] * 2 + [_P]),
     "lrce_window_attn_core": [_P] * 6 + [_I] * 6 + [_P],
+    "lrce_attn_fwd_counts": [_P, _I],
     "lrce_attn_bwd": (
         [_P, _P] + [_I] * 11 + [_I, _F] + [_P] * 9 + [_P] * 5 + [_P] * 10
         + [_I, _I, _P]),

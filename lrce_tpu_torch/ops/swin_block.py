@@ -49,7 +49,7 @@ from lrce_tpu_torch.ops.nn import (gelu, layer_norm, layer_norm_input_bwd,
 from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Shift, Window,
                                             mask_label_args,
                                             attention_proj_f32, attention_vjp,
-                                            attn_fwd_groups,
+                                            attn_fwd_launch_groups,
                                             check_attention_shapes,
                                             check_kernel_args, check_shift,
                                             expect_shape,
@@ -554,7 +554,8 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
         num_heads, ff, ln_eps, *(ptr(t) for t in (
             ln1s, ln1b, qkv_w, qkv_b, proj_w, proj_b, rel_bias, mask, labels,
             off, ln2s, ln2b, w1, b1, w2, b2, dp1, dp2)),
-        attn_fwd_groups(t // n, num_heads, sm_count(x)), int(one_launch),
+        attn_fwd_launch_groups(t // n, n, c // num_heads, num_heads,
+                               sm_count(x)), int(one_launch),
         *(ptr(t) for t in ws),
         cuda_lib.stream(x))
     cuda_lib.check(name, rc)

@@ -328,12 +328,93 @@ def mask_label_args(mask: Optional[torch.Tensor]):
 
 
 def attn_fwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
-    """Window groups of the attention-forward CTA's grid: each CTA (group,
-    head) reads its head's rel_bias once and walks its windows. The CTA
-    fills an SM (ten warps, ~165 KB of shared memory), so the grid is sized
-    as K4's: about one CTA per SM of ``sms``, never more groups than
-    windows."""
+    """Window groups of ``attn_fwd_kernel``'s grid (windows of at most 160
+    tokens): each CTA (group, head) reads its head's rel_bias once and walks
+    its windows. The CTA fills an SM (ten warps, ~165 KB of shared memory),
+    so the grid is sized as K4's: about one CTA per SM of ``sms``, never
+    more groups than windows."""
     return attn_bwd_groups(nwin_total, num_heads, sms)
+
+
+ATTN_FWD_SMALL_TOKENS = 160  # attn_fwd_kernel: twenty 8-key blocks at most
+ATTN_FWD_MAX_TOKENS = 400    # attn_fwd_big_kernel
+ATTN_FWD_BLOCK_ROWS = 80     # query rows of one attn_fwd_big_kernel CTA
+ATTN_FWD_KEY_SPLITS = 2      # its warp sets, one per half of the keys
+ATTN_FWD_CTAS = ("attn_fwd_kernel", "attn_fwd_big_kernel",
+                 "window_attn_kernel")
+
+
+def attn_fwd_cta(n: int, head_dim: int) -> str:
+    """The CTA that ``launch_attn`` (``csrc/attn_fwd.cu``) gives windows of
+    n tokens at this head_dim: ``attn_fwd_kernel`` for head_dim 16 / 32 and
+    n <= 160 (padded to 16), ``attn_fwd_big_kernel`` for 161-400, the WMMA
+    ``window_attn_kernel`` for the rest."""
+    padded = -(-n // 16) * 16
+    if head_dim not in (16, 32) or padded > ATTN_FWD_MAX_TOKENS:
+        return "window_attn_kernel"
+    if padded <= ATTN_FWD_SMALL_TOKENS:
+        return "attn_fwd_kernel"
+    return "attn_fwd_big_kernel"
+
+
+def attn_fwd_blocks(n: int) -> int:
+    """Query blocks of ``attn_fwd_big_kernel``'s grid: 80-row blocks of the
+    window padded to 16 rows."""
+    return -(-(-(-n // 16) * 16) // ATTN_FWD_BLOCK_ROWS)
+
+
+def attn_fwd_big_smem_bytes(n: int, head_dim: int) -> int:
+    """Shared memory of one ``attn_fwd_big_kernel`` CTA (``big_fwd_smem_
+    bytes`` in ``csrc/attn_fwd.cu``): its 80 bias rows in f32, k twice and
+    v once, q of its rows, the labels twice, the two halves' (max, sum) and
+    the upper half's f32 ctx."""
+    npad = -(-n // 16) * 16
+    rows = ATTN_FWD_BLOCK_ROWS
+    return (rows * npad * 4 + 3 * npad * head_dim * 2 + rows * head_dim * 2
+            + 2 * npad * 4 + ATTN_FWD_KEY_SPLITS * rows * 8
+            + rows * head_dim * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def attn_fwd_big_groups(nwin_total: int, num_heads: int, sms: int,
+                        blocks: int) -> int:
+    """Window groups of ``attn_fwd_big_kernel``'s grid (groups x heads x
+    ``blocks`` query blocks). Its CTA takes an SM (~220 KB of shared
+    memory), fills its 80 bias rows once and then walks its windows, so
+    the call lasts about (waves of the grid) x (windows a CTA + one for the
+    bias fill); the groups that make that least, fewest on a tie, never
+    more than windows."""
+    per = num_heads * blocks
+    best, best_cost = 1, None
+    for groups in range(1, min(nwin_total, 8 * sms) + 1):
+        cost = -(-groups * per // sms) * (-(-nwin_total // groups) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = groups, cost
+    return best
+
+
+def attn_fwd_launch_groups(nwin_total: int, n: int, head_dim: int,
+                           num_heads: int, sms: int) -> int:
+    """The ``groups`` argument of a forward attention launch: the grid of
+    the CTA that ``attn_fwd_cta`` names (unused by the WMMA CTA)."""
+    cta = attn_fwd_cta(n, head_dim)
+    if cta == "attn_fwd_big_kernel":
+        return attn_fwd_big_groups(nwin_total, num_heads, sms,
+                                   attn_fwd_blocks(n))
+    return attn_fwd_groups(nwin_total, num_heads, sms)
+
+
+def attn_fwd_cta_launches(reset: bool = False) -> dict:
+    """Launches of each forward attention CTA made by the CUDA library since
+    the last reset (``lrce_attn_fwd_counts``), by name; ``reset`` zeroes
+    them. Needs the built library, so the card's machine."""
+    import ctypes
+
+    out = (ctypes.c_longlong * 3)()
+    cuda_lib.check("lrce_attn_fwd_counts",
+                   cuda_lib.library().lib.lrce_attn_fwd_counts(
+                       ctypes.addressof(out), int(reset)))
+    return dict(zip(ATTN_FWD_CTAS, out))
 
 
 def _check_core_shapes(name, qkv, rel_bias, mask, num_heads):
@@ -362,9 +443,10 @@ def window_attention_core(qkv: torch.Tensor, rel_bias: torch.Tensor,
     qkv: (windows, N, 3C); rel_bias: (nH, N, N) f32; mask: (..., N, N) f32,
     one per window of a clip (windows a multiple of their count), or None.
     Returns ctx (windows, N, C). On CUDA: qkv bf16, everything contiguous,
-    head_dim a multiple of 16; head_dim 16 or 32 with N <= 160 runs the
-    ``mma.sync`` CTA of ``csrc/attn_fwd.cu``, other shapes the WMMA CTA of
-    ``csrc/swin_common.cu``."""
+    head_dim a multiple of 16; head_dim 16 or 32 with N <= 400 runs an
+    ``mma.sync`` CTA of ``csrc/attn_fwd.cu`` (``attn_fwd_kernel`` up to 160
+    tokens, ``attn_fwd_big_kernel`` beyond), other shapes the WMMA CTA of
+    ``csrc/swin_common.cu`` (``attn_fwd_cta``)."""
     name = "window_attention_core"
     _check_core_shapes(name, qkv, rel_bias, mask, num_heads)
     if qkv.device.type == "cpu":
@@ -394,7 +476,8 @@ def window_attention_core(qkv: torch.Tensor, rel_bias: torch.Tensor,
     rc = cuda_lib.library().lib.lrce_window_attn_core(
         qkv.data_ptr(), ctx.data_ptr(), rel_bias.data_ptr(), _ptr(mask),
         _ptr(labels), _ptr(off), nwin, nwin_clip, n, c, num_heads,
-        attn_fwd_groups(nwin, num_heads, sm_count(qkv)), _stream(qkv))
+        attn_fwd_launch_groups(nwin, n, c // num_heads, num_heads,
+                               sm_count(qkv)), _stream(qkv))
     cuda_lib.check(name, rc)
     window_attention_core.launches += 1
     return ctx
@@ -427,7 +510,8 @@ def _attention_fwd_kernel(name, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
         num_heads, ln_eps, ln_scale.data_ptr(), ln_bias.data_ptr(),
         qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(),
         proj_b.data_ptr(), rel_bias.data_ptr(), _ptr(mask), _ptr(labels),
-        _ptr(off), attn_fwd_groups(t // n, num_heads, sm_count(x)),
+        _ptr(off), attn_fwd_launch_groups(t // n, n, c // num_heads,
+                                          num_heads, sm_count(x)),
         ws_tc.data_ptr(), ws_qkv.data_ptr(), _stream(x))
     cuda_lib.check(name, rc)
     return out

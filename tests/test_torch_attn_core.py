@@ -3,9 +3,11 @@
 versions of K6 / K2 against the body they had before the CTA got an entry of
 its own (bit for bit) and against the JAX Pallas kernel
 ``fused_window_attention`` in interpret mode; the label form of the shift
-mask that the CUDA kernel is handed; the grid helper; and what the wrapper
-refuses. chip_smoke.py and tests/test_torch_cuda_kernels.py hold the CUDA
-kernel to the plain version on the card.
+mask that the CUDA kernel is handed; the grid helpers (both forward CTAs,
+and which CTA a shape takes); the 16-frame window (N = 392) against the
+Pallas kernel; and what the wrapper refuses. chip_smoke.py and
+tests/test_torch_cuda_kernels.py hold the CUDA kernels to the plain version
+on the card.
 
 Tolerance against JAX 1e-4 (rtol and atol), f32: both sides compute the same
 f32 expressions (LayerNorm, products, an exact softmax) and differ in
@@ -95,6 +97,17 @@ def _earlier_window_attention_plain(x, p, mask, shift):
     return WA.roll_shift(WA.window_reverse(out, WINDOW, B, D, H, W), shift, 1)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread, so that both plain forms run the CPU matmul's
+    same blocking whatever else the process runs beside them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
@@ -132,6 +145,59 @@ def test_core_between_ln_qkv_and_proj_matches_pallas(masked):
     assert tuple(ctx.shape) == (win.shape[0], N, C)
     out = matmul_f32(ctx, p["proj_w"]) + p["proj_b"]
     got = WA.window_reverse(out, WINDOW, B, D, H, W)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# the 16-frame window (8, 7, 7), N = 392, at a narrow width: one clip of
+# (8, 14, 14) tokens, four windows
+WINDOW16 = (8, 7, 7)
+N16 = 392
+DIMS16 = (1, 8, 14, 14)
+C16, HEADS16 = 32, 2
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (0, 3, 3)],
+                         ids=["unmasked", "shifted"])
+def test_core_at_the_16_frame_window_matches_pallas(shift):
+    """At N = 392 (the window the forward's attn_fwd_big_kernel takes on the
+    card): LN1, partition and qkv, then ``window_attention_core`` (on the
+    CPU its plain version), then proj and reverse, against the Pallas kernel
+    of K6 on the same input rolled by -shift, with the shift mask of
+    (8, 14, 14) when shifted. Tolerance: TOL, f32."""
+    rng = np.random.default_rng(16)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    x = f32(np.roll(rng.normal(size=(*DIMS16, C16)),
+                    [-v for v in shift], (1, 2, 3)))
+    p = dict(ln_s=f32(1.0 + 0.2 * rng.normal(size=C16)),
+             ln_b=f32(0.1 * rng.normal(size=C16)),
+             qkv_w=f32(rng.normal(size=(3 * C16, C16)) / np.sqrt(C16)),
+             qkv_b=f32(0.02 * rng.normal(size=3 * C16)),
+             proj_w=f32(rng.normal(size=(C16, C16)) / np.sqrt(C16)),
+             proj_b=f32(0.02 * rng.normal(size=C16)),
+             rel_bias=f32(rng.normal(size=(HEADS16, N16, N16))))
+    nwin = tuple(d // w for d, w in zip(DIMS16[1:], WINDOW16))
+    mask = None
+    if any(shift):
+        mask = torch.from_numpy(compute_shift_mask(DIMS16[1:], WINDOW16, shift)
+                                .reshape(*nwin, N16, N16))
+    sentinel = np.zeros((1,) * 5, np.float32)
+    want = PWA.fused_window_attention(
+        jnp.asarray(x.numpy()), jnp.asarray(p["ln_s"].numpy()),
+        jnp.asarray(p["ln_b"].numpy()), jnp.asarray(p["qkv_w"].numpy().T),
+        jnp.asarray(p["qkv_b"].numpy()), jnp.asarray(p["proj_w"].numpy().T),
+        jnp.asarray(p["proj_b"].numpy()), jnp.asarray(p["rel_bias"].numpy()),
+        jnp.asarray(sentinel if mask is None else mask.numpy()), WINDOW16,
+        HEADS16, 1e-5, True)
+    win = WA.window_partition(layer_norm(x, p["ln_s"], p["ln_b"], 1e-5),
+                              WINDOW16)
+    ctx = WA.window_attention_core(dense(win, p["qkv_w"], p["qkv_b"]),
+                                   p["rel_bias"], mask, HEADS16)
+    assert tuple(ctx.shape) == (win.shape[0], N16, C16)
+    out = matmul_f32(ctx, p["proj_w"]) + p["proj_b"]
+    got = WA.window_reverse(out, WINDOW16, *DIMS16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -228,6 +294,94 @@ def test_attn_fwd_groups_fill_the_card_once(t, c, heads):
     (40, 4, 132, 33), (5, 32, 132, 4), (384, 4, 132, 33), (24, 16, 132, 8)])
 def test_attn_fwd_groups_values(nwin, heads, sms, want):
     assert WA.attn_fwd_groups(nwin, heads, sms) == want
+
+
+@pytest.mark.parametrize("n,hd,cta", [
+    (147, 32, "attn_fwd_kernel"), (160, 16, "attn_fwd_kernel"),
+    (8, 16, "attn_fwd_kernel"), (161, 32, "attn_fwd_big_kernel"),
+    (200, 16, "attn_fwd_big_kernel"), (392, 32, "attn_fwd_big_kernel"),
+    (400, 32, "attn_fwd_big_kernel"), (401, 32, "window_attn_kernel"),
+    (147, 64, "window_attn_kernel"), (392, 48, "window_attn_kernel")])
+def test_attn_fwd_cta_by_shape(n, hd, cta):
+    assert WA.attn_fwd_cta(n, hd) == cta
+
+
+@pytest.mark.parametrize("n,blocks", [(161, 3), (176, 3), (200, 3),
+                                      (245, 4), (392, 5), (400, 5)])
+def test_attn_fwd_blocks(n, blocks):
+    """80-row query blocks of the window padded to 16 rows; the last one
+    ragged except at N = 392 / 400."""
+    assert WA.attn_fwd_blocks(n) == blocks
+    assert (blocks - 1) * WA.ATTN_FWD_BLOCK_ROWS < -(-n // 16) * 16
+    assert -(-n // 16) * 16 <= blocks * WA.ATTN_FWD_BLOCK_ROWS
+
+
+def test_attn_fwd_big_smem_fits_an_sm_at_np400():
+    """The CTA's shared memory at the largest window it takes (Np = 400):
+    80 bias rows of 400 f32 (128,000 B), k twice and v (76,800), q of 80
+    rows (5,120), the labels twice (3,200), two halves' (max, sum) of 80
+    rows (1,280) and the upper half's f32 ctx (10,240): 224,640 bytes,
+    inside the 232,448 a CTA may take; less at head_dim 16."""
+    assert WA.attn_fwd_big_smem_bytes(400, 32) == 224640
+    assert WA.attn_fwd_big_smem_bytes(392, 32) == 224640
+    assert WA.attn_fwd_big_smem_bytes(400, 16) == 178560
+    assert WA.attn_fwd_big_smem_bytes(400, 32) <= 227 * 1024
+
+
+def test_attn_fwd_big_constants_match_the_source():
+    """The Python helpers' rows, key parts and token limits are the ones
+    ``csrc/attn_fwd.cu`` launches with."""
+    import re
+
+    from lrce_tpu_torch.ops import cuda_lib
+    src = (cuda_lib.CSRC / "attn_fwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert 16 * const("FB_ROW_WARPS") == WA.ATTN_FWD_BLOCK_ROWS
+    assert const("FB_SPLITS") == WA.ATTN_FWD_KEY_SPLITS
+    assert const("FB_MAX_NP") == WA.ATTN_FWD_MAX_TOKENS
+    assert 8 * const("FW_MAX_NB") == WA.ATTN_FWD_SMALL_TOKENS
+
+
+# (tokens, C, heads) of the flagship's stages at 48 clips of 16 frames
+STAGES16 = [(1204224, 128, 4), (301056, 256, 8), (75264, 512, 16),
+            (18816, 1024, 32)]
+
+
+@pytest.mark.parametrize("t,c,heads,want", [
+    (s[0], s[1], s[2], w) for s, w in zip(STAGES16, (33, 13, 8, 4))])
+def test_attn_fwd_big_groups_at_n392(t, c, heads, want):
+    """At N = 392 on 132 SMs (5 query blocks): the groups whose waves x
+    (windows a CTA + 1) is least, and no other count does better."""
+    nwin = t // 392
+
+    def cost(g):
+        return -(-g * heads * 5 // SMS) * (-(-nwin // g) + 1)
+
+    groups = WA.attn_fwd_big_groups(nwin, heads, SMS, 5)
+    assert groups == want
+    assert all(cost(groups) <= cost(g) for g in range(1, nwin + 1))
+    assert WA.attn_fwd_launch_groups(nwin, 392, c // heads, heads,
+                                     SMS) == groups
+
+
+@pytest.mark.parametrize("nwin,heads,sms,want", [
+    (1, 4, 132, 1), (2, 32, 132, 1), (6, 32, 132, 2), (24, 16, 132, 3),
+    (384, 4, 132, 13), (96, 32, 132, 4), (5, 2, 16, 1)])
+def test_attn_fwd_big_groups_values(nwin, heads, sms, want):
+    groups = WA.attn_fwd_big_groups(nwin, heads, sms, 5)
+    assert groups == want and 1 <= groups <= nwin
+
+
+@pytest.mark.parametrize("t,c,heads", STAGES)
+def test_the_5_frame_grid_is_unchanged(t, c, heads):
+    """Windows of at most 160 tokens keep attn_fwd_kernel's groups."""
+    nwin = t // 147
+    assert WA.attn_fwd_launch_groups(nwin, 147, c // heads, heads,
+                                     SMS) == WA.attn_fwd_groups(nwin, heads,
+                                                                SMS)
 
 
 def test_core_refuses_what_its_kernel_does_not_take():

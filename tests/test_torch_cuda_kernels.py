@@ -5,9 +5,12 @@ K8 at C = 128, 256 and 512 likewise; the
 shared wgmma GEMMs on their own at ragged shapes; K4 and K5 at the
 flagship's stage 0 and stage 3 widths and twice over for bit-identity, K4's
 rows / columns pair at the 16-frame window (N = 392) at all four stages and
-at N = 196 and 245; the
-attention-forward CTA on its own at the flagship's window and at the edges
-of its range, and the WMMA CTA that takes the shapes beyond it), the
+at N = 161, 196, 200, 245 and 400; the
+attention-forward CTAs on their own: attn_fwd_kernel at the flagship's
+window and at the edges of its range, attn_fwd_big_kernel at N = 161-400
+(head_dim 16 / 32, masked by labels, densely and not, ragged blocks), each
+call's CTA named by the library's launch counts, and the WMMA CTA for a
+head_dim of 48 or 64), the
 K1 / K3 / K2 / K7 autograd.Functions' gradients against torch autograd
 through the plain versions, and the prefetcher's side-stream copies against
 blocking ones. Every test needs a GPU and skips without one. The file
@@ -532,6 +535,11 @@ K4_PAIR_SHAPES = {
     "stage3": ((3, 8, 7, 7, 1024), 32, (8, 7, 7), (0, 0, 0)),
     "n196-hd16": ((2, 4, 14, 14, 64), 4, (4, 7, 7), (0, 3, 3)),
     "n245": ((2, 5, 14, 14, 128), 4, (5, 7, 7), (0, 3, 3)),
+    # the edges of the range: N = 161 (a ragged last key and query block:
+    # 11 blocks of 16, one key in the last), 200, and the full 400
+    "n161-hd16": ((2, 1, 14, 46, 64), 4, (1, 7, 23), (0, 3, 11)),
+    "n200-hd32": ((2, 8, 10, 10, 128), 4, (8, 5, 5), (0, 2, 2)),
+    "n400-hd32": ((1, 16, 10, 10, 64), 2, (16, 5, 5), (0, 2, 2)),
 }
 
 
@@ -622,22 +630,70 @@ def test_attn_core(dev, shape, mask_kind):
         assert bool(torch.isnan(WA.mask_label_args(case[2])[1]).all())
 
 
+def _cta_launches(run):
+    """run's result and the forward attention CTAs it launched, by name."""
+    WA.attn_fwd_cta_launches(reset=True)
+    out = run()
+    return out, WA.attn_fwd_cta_launches(reset=True)
+
+
+def _only(launched, cta, times=1):
+    want = dict.fromkeys(WA.ATTN_FWD_CTAS, 0)
+    want[cta] = times
+    assert launched == want
+
+
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 @pytest.mark.parametrize("n,hd,heads", [(392, 32, 2), (147, 64, 2),
                                         (98, 48, 2)],
                          ids=["n392", "hd64", "hd48"])
 def test_attn_core_beyond_the_new_kernels_range(dev, n, hd, heads, masked):
-    """N > 160 or a head_dim other than 16 or 32 runs the WMMA CTA."""
+    """Beyond attn_fwd_kernel's range: N = 392 at head_dim 32 runs
+    attn_fwd_big_kernel, a head_dim other than 16 or 32 the WMMA CTA."""
     case = _core_case(np.random.default_rng(31), dev, 2, 2, n, hd, heads,
                       "labels" if masked else None)
-    _close(WA.window_attention_core(*case),
-           WA.window_attention_core_plain(*case))
+    got, launched = _cta_launches(lambda: WA.window_attention_core(*case))
+    _only(launched, WA.attn_fwd_cta(n, hd))
+    assert WA.attn_fwd_cta(n, hd) == ("attn_fwd_big_kernel" if n == 392
+                                      else "window_attn_kernel")
+    _close(got, WA.window_attention_core_plain(*case))
+
+
+# attn_fwd_big_kernel (windows of 161-400 tokens) at the edges of its range:
+# (clips, windows per clip, N, head_dim, heads). N = 161 and 200 leave the
+# last 80-row query block and the last 16-key step ragged; 392 is the
+# 16-frame window (8, 7, 7), 400 the full range; stage 0's 4 heads with more
+# windows than a 132-SM card's groups
+BIG_CORE_SHAPES = {"n161-hd16": (2, 2, 161, 16, 2),
+                   "n161-hd32": (2, 2, 161, 32, 2),
+                   "n200-hd16": (2, 2, 200, 16, 4),
+                   "n200-hd32": (2, 2, 200, 32, 2),
+                   "n392-hd16": (2, 2, 392, 16, 2),
+                   "n392-hd32": (3, 4, 392, 32, 4),
+                   "n400-hd16": (1, 2, 400, 16, 2),
+                   "n400-hd32": (2, 2, 400, 32, 2)}
+
+
+@pytest.mark.parametrize("mask_kind", [None, "labels", "dense", "mixed"],
+                         ids=["unmasked", "labels", "dense", "mixed"])
+@pytest.mark.parametrize("shape", list(BIG_CORE_SHAPES))
+def test_attn_core_big(dev, shape, mask_kind):
+    """One launch of attn_fwd_big_kernel a call and none of the other two
+    CTAs; the plain version's result; the same bits on a second call."""
+    case = _core_case(np.random.default_rng(33), dev, *BIG_CORE_SHAPES[shape],
+                      mask_kind)
+    before = WA.window_attention_core.launches
+    got, launched = _cta_launches(lambda: WA.window_attention_core(*case))
+    assert WA.window_attention_core.launches == before + 1
+    _only(launched, "attn_fwd_big_kernel")
+    _close(got, WA.window_attention_core_plain(*case))
+    assert torch.equal(got, WA.window_attention_core(*case))    # no atomics
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 def test_k6_with_the_constructor_window(dev, masked):
     """K6 on a 16-frame clip's window (8, 7, 7), N = 392: the shape rule of
-    the attention launcher takes the WMMA CTA, and nothing raises."""
+    the attention launcher takes attn_fwd_big_kernel, once a call."""
     rng = np.random.default_rng(32)
     window, shift = (8, 7, 7), ((4, 3, 3) if masked else SHIFT0)
     case = _k4_case(rng, dev, (1, 8, 14, 14, 64), 2, window, shift)
@@ -646,7 +702,26 @@ def test_k6_with_the_constructor_window(dev, masked):
                           device=dev)
     args = (x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, rel, mask, window, 2,
             1e-5, shift)
-    _close(WA.fused_window_attention(*args), WA.window_attention_plain(*args))
+    got, launched = _cta_launches(lambda: WA.fused_window_attention(*args))
+    _only(launched, "attn_fwd_big_kernel")
+    _close(got, WA.window_attention_plain(*args))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_k6_at_head_dim_64_runs_the_wmma_cta(dev, masked):
+    """The shapes only window_attn_kernel takes (head_dim 64 here) still
+    run it, held to the plain version."""
+    rng = np.random.default_rng(35)
+    window, shift = (3, 7, 7), ((0, 3, 3) if masked else SHIFT0)
+    case = _k4_case(rng, dev, (1, 3, 14, 14, 128), 2, window, shift)
+    x, _, ln_s, ln_b, qkv_w, qkv_b, proj_w, rel, mask = case[:9]
+    proj_b = torch.tensor(0.02 * rng.normal(size=128), dtype=torch.float32,
+                          device=dev)
+    args = (x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, rel, mask, window, 2,
+            1e-5, shift)
+    got, launched = _cta_launches(lambda: WA.fused_window_attention(*args))
+    _only(launched, "window_attn_kernel")
+    _close(got, WA.window_attention_plain(*args))
 
 
 @pytest.mark.parametrize("gather,shift", [(False, SHIFT0), (True, SHIFT0),
@@ -779,10 +854,17 @@ def test_train_step_at_n392_matches_the_plain_route(dev):
                  for layer in model.layers]
         return loss.item(), grads
 
+    WA.attn_fwd_cta_launches(reset=True)
     lk, gk = run(True)
+    ctas = WA.attn_fwd_cta_launches(reset=True)
     # K1: one a stage at 0-1, two at stages 2-3; K3: one a stage at 0-1;
     # K4: one a block
     assert [f.launches - b for f, b in zip(wrappers, before)] == [6, 2, 8]
+    # the forward attention of each block, and K6's recompute of it in the
+    # backward: attn_fwd_big_kernel at N = 392 (stages 0-2), attn_fwd_kernel
+    # at N = 128 (stage 3), never the WMMA CTA
+    assert ctas == {"attn_fwd_kernel": 4, "attn_fwd_big_kernel": 12,
+                    "window_attn_kernel": 0}
     lp, gp = run(False)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     for a, b in zip(gk, gp):
