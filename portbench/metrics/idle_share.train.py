@@ -1,0 +1,15 @@
+"""The share of the traced sub-window in which no operation ran on the
+device: 1 - (union of the device's busy intervals) / the sub-window."""
+
+from portbench import readers
+
+UNIT = "%"
+LAYER = "device"
+MOVES = "clips_per_s"
+
+
+def read(r):
+    tr = readers.traced(r, "train")
+    if tr is None:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
