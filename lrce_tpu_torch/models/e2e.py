@@ -36,6 +36,7 @@ from lrce_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from lrce_tpu_torch.models import bert as B
 from lrce_tpu_torch.models import swin3d as S
 from lrce_tpu_torch.models.fusion import LRCEHead
+from lrce_tpu_torch.utils import trace
 from lrce_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -121,7 +122,8 @@ def extract_video_features(model: LRCEModel, video_clips: torch.Tensor,
     mean = torch.tensor(IMAGENET_MEAN, dtype=dt, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=dt, device=x.device)
     x = ((x - mean) / std).reshape(b * n_clips, t, h, w, c)
-    feats = model.video_extractor.swin(x, training, generator)
+    with trace.span("swin"):
+        feats = model.video_extractor.swin(x, training, generator)
     _, tp, hp, wp, cdim = feats.shape
     return feats.reshape(b, n_clips, tp, hp * wp, cdim)
 
@@ -135,10 +137,14 @@ def extract_text_features(model: LRCEModel, texts: torch.Tensor,
     bert = model.text_extractor.bert
     if texts.ndim == 3:
         b, m, l = texts.shape
-        out = bert(texts.reshape(b * m, l), attention_mask.reshape(b * m, l),
-                   token_type_ids.reshape(b * m, l), training, generator)
+        with trace.span("bert"):
+            out = bert(texts.reshape(b * m, l),
+                       attention_mask.reshape(b * m, l),
+                       token_type_ids.reshape(b * m, l), training, generator)
         return out.reshape(b, m, l, -1)
-    return bert(texts, attention_mask, token_type_ids, training, generator)
+    with trace.span("bert"):
+        return bert(texts, attention_mask, token_type_ids, training,
+                    generator)
 
 
 def e2e_apply(model: LRCEModel, video_clips: torch.Tensor,
@@ -164,11 +170,16 @@ def e2e_apply(model: LRCEModel, video_clips: torch.Tensor,
     if training and generator is None:
         raise ValueError("training needs a torch.Generator on the model's "
                          "device")
-    video = extract_video_features(model, video_clips, training, generator)
-    text = extract_text_features(model, texts, texts_attention_mask,
-                                 texts_type_ids, training, generator)
-    return model.fusion_model(video, text, texts_attention_mask, training,
-                              generator)
+    with trace.span("forward"):
+        trace.count("questions", video_clips.shape[0])
+        trace.count("clips", video_clips.shape[0] * video_clips.shape[1])
+        video = extract_video_features(model, video_clips, training,
+                                       generator)
+        text = extract_text_features(model, texts, texts_attention_mask,
+                                     texts_type_ids, training, generator)
+        with trace.span("fusion"):
+            return model.fusion_model(video, text, texts_attention_mask,
+                                      training, generator)
 
 
 @torch.no_grad()

@@ -27,6 +27,7 @@ from lrce_tpu_torch.models.embedding import TextPosEmbed, VideoPosEmbed, xavier_
 from lrce_tpu_torch.ops.nn import (LayerNorm, Linear, MultiheadAttention,
                                    dropout, gelu)
 from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp
+from lrce_tpu_torch.utils import trace
 
 LN_EPS = 1e-12
 NUM_LAYERS = 12
@@ -88,12 +89,13 @@ class FusionTransformer(nn.Module):
         b, n_clips, _, d = video.shape
         token = self.summarization_token.to(video.dtype).expand(b, 1, d)
         for i in range(n_clips):
-            memory = torch.cat([video[:, i], text], dim=1)
-            res = token
-            for layer in self.transformer.layers:
-                res = layer(res, memory, rate, training, generator)
-            token = self.fusion_layer_norm(token + res)
-            token = dropout(token, rate, training, generator)
+            with trace.span("fusion.clip"):
+                memory = torch.cat([video[:, i], text], dim=1)
+                res = token
+                for layer in self.transformer.layers:
+                    res = layer(res, memory, rate, training, generator)
+                token = self.fusion_layer_norm(token + res)
+                token = dropout(token, rate, training, generator)
         return token
 
 
@@ -124,12 +126,18 @@ class LRCEHead(nn.Module):
             if video_feature_dim != feature_dim else None)
 
     def _embed(self, video, text, training, generator):
-        if self.projection_layer is not None:
-            video = self.projection_layer(video)
-        rate = self.dropout_rate
-        return (dropout(self.video_pos_embed(video), rate, training, generator),
-                dropout(self.question_pos_embed(text), rate, training,
-                        generator))
+        with trace.span("fusion.embed"):
+            if self.projection_layer is not None:
+                video = self.projection_layer(video)
+            rate = self.dropout_rate
+            return (dropout(self.video_pos_embed(video), rate, training,
+                            generator),
+                    dropout(self.question_pos_embed(text), rate, training,
+                            generator))
+
+    def _head(self, token: torch.Tensor) -> torch.Tensor:
+        with trace.span("fusion.head"):
+            return self.final_fc(token[:, 0])
 
     def forward(self, video: torch.Tensor, text: torch.Tensor,
                 texts_attention_mask: Optional[torch.Tensor] = None,
@@ -147,10 +155,9 @@ class LRCEHead(nn.Module):
                 video, text.reshape((batch * m,) + text.shape[2:]), training,
                 generator)
             video = video.repeat_interleave(m, dim=0)
-            out = self.final_fc(fuse(video, text)[:, 0])
-            return out.reshape(batch, m)
+            return self._head(fuse(video, text)).reshape(batch, m)
         video, text = self._embed(video, text, training, generator)
-        out = self.final_fc(fuse(video, text)[:, 0])
+        out = self._head(fuse(video, text))
         if self.task_type == "count":
             return torch.relu(out.reshape(batch))
         return out.reshape(batch, -1)

@@ -5,8 +5,11 @@ Counterpart of ``tools/profile.py``. Prints the forward's FLOPs, the
 per-step ms and clips/s, or with ``--latency`` the per-question latency
 (batch 1, 3 clips: p50 / p90 over at least 20 synchronised requests), and
 with ``--trace-dir`` writes a torch.profiler Chrome trace of 3 steps
-(``trace.json``, loadable in Perfetto or chrome://tracing). Returns the
-numbers as a dict. Raises where there is no card.
+(``trace.json``, loadable in Perfetto or chrome://tracing) with the
+program's tracer on, so that its ``lrce.*`` spans (``utils/trace.py``: step,
+forward, swin, bert, fusion and its clips, loss, backward, optimizer, ...)
+sit beside the kernels they launched. Returns the numbers as a dict. Raises
+where there is no card.
 
 The FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode`` over
 one forward on the plain route, which does the same math as the kernel
@@ -30,6 +33,7 @@ import torch
 from lrce_tpu_torch.models.e2e import E2EConfig, e2e_forward
 from lrce_tpu_torch.tools import common
 from lrce_tpu_torch.train.agent import AgentOE
+from lrce_tpu_torch.utils import trace
 from lrce_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 LATENCY_REQUESTS = 20   # the least number of requests --latency times
@@ -54,7 +58,8 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
     p.add_argument("--train", action="store_true",
                    help="profile the full train step instead of the forward")
     p.add_argument("--trace-dir", default=None,
-                   help="write a torch.profiler Chrome trace here")
+                   help="write a torch.profiler Chrome trace here, with the "
+                        "program's lrce.* spans")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--latency", action="store_true",
                    help="measure p50/p90 per-question latency (batch 1)")
@@ -99,10 +104,15 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
         activities = [ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            for _ in range(3):
-                step()
-            common.sync(device)
+        trace.enable()
+        try:
+            with profile(activities=activities) as prof:
+                for _ in range(3):
+                    step()
+                common.sync(device)
+        finally:
+            trace.disable()
+            trace.drain()
         os.makedirs(args.trace_dir, exist_ok=True)
         path = os.path.join(args.trace_dir, "trace.json")
         prof.export_chrome_trace(path)

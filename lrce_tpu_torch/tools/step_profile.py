@@ -19,9 +19,12 @@ synchronized step, the batch's copy included) and the CUDA-event ms of each
 piece and the peak device memory inside each piece (the allocator's peak is
 reset between the pieces), then the step's peak. With ``--profile`` one more
 step runs under torch.profiler and the device time is summed by kind of
-kernel, with the launches and the device's idle share of that step's wall
-time (the profiler's own host cost included). The last line is one JSON object with
-every number printed. Fails where there is no CUDA device.
+kernel, with the launches. The device's idle share is not this tool's: a sum
+of kernel times over a profiled step's wall time counts overlapping kernels
+twice and the profiler's own host cost as idle. The benchmark's
+``idle_share.train`` (``portbench/``: one minus the union of the device's busy
+intervals over a traced window) is the measure. The last line is one JSON
+object with every number printed. Fails where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -194,14 +197,14 @@ def main() -> int:
         if busy <= 0:
             raise RuntimeError("the profiler recorded no device time")
         print(f"[profile] one step under torch.profiler: wall {wall:.1f} ms, "
-              f"device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
+              f"device time {busy:.1f} ms, "
               f"{sum(k['launches'] for k in kinds.values())} launches",
               flush=True)
         for name, k in sorted(kinds.items(), key=lambda kv: -kv[1]["ms"]):
             print(f"[profile]   {name}: {k['ms']:.1f} ms, {k['launches']} "
                   "launches", flush=True)
-        result["profile"] = {"wall_ms": wall, "busy_ms": busy,
-                             "idle_share": 1 - busy / wall, "kinds": kinds}
+        result["profile"] = {"wall_ms": wall, "device_ms": busy,
+                             "kinds": kinds}
     print(json.dumps(result))
     return 0
 

@@ -67,6 +67,7 @@ from lrce_tpu_torch.train import losses as L
 from lrce_tpu_torch.train import optimizer as O
 from lrce_tpu_torch.train.schedule import CosineWarmupRestarts, ReduceLROnPlateau
 from lrce_tpu_torch.utils import checkpoint as C
+from lrce_tpu_torch.utils import trace
 from lrce_tpu_torch.utils.logging import get_logger
 from lrce_tpu_torch.utils.pytree import l2_reg, stacked_param_groups
 
@@ -213,22 +214,27 @@ class AgentBase:
                 torch.tensor(float(pred.shape[0]), device=logits.device))
 
     def _loss(self, logits, gt):
-        loss = self._task_loss(logits, gt)
-        if self.reg_strength:
-            loss = loss + self.reg_strength * l2_reg(self.reg_groups)
-        return loss
+        with trace.span("loss"):
+            loss = self._task_loss(logits, gt)
+            if self.reg_strength:
+                loss = loss + self.reg_strength * l2_reg(self.reg_groups)
+            return loss
 
     def _train_step(self, clips, ids, mask, types, gt) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
+        with trace.span("optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
         logits = self._forward(clips, ids, mask, types, True)
         loss = self._loss(logits, gt)
-        loss.backward()
-        if self.layout is not None:
-            PS.sync_manual_grads(self.manual_grads, self.layout.batch_group,
-                                 self.layout.n_batch)
-        O.set_lrs(self.optimizer, self.lrs)
-        self.optimizer.step()
-        with torch.no_grad():
+        with trace.span("backward"):
+            loss.backward()
+            if self.layout is not None:
+                PS.sync_manual_grads(self.manual_grads,
+                                     self.layout.batch_group,
+                                     self.layout.n_batch)
+        with trace.span("optimizer"):
+            O.set_lrs(self.optimizer, self.lrs)
+            self.optimizer.step()
+        with torch.no_grad(), trace.span("metrics"):
             m0, m1 = self._metric_pair(logits.detach(), gt)
             return self._global(torch.stack([loss.detach().float(), m0, m1]))
 
@@ -236,8 +242,9 @@ class AgentBase:
     def _eval_step(self, clips, ids, mask, types, gt) -> torch.Tensor:
         logits = self._forward(clips, ids, mask, types, False)
         loss = self._loss(logits, gt)
-        m0, m1 = self._metric_pair(logits, gt)
-        return self._global(torch.stack([loss.float(), m0, m1]))
+        with trace.span("metrics"):
+            m0, m1 = self._metric_pair(logits, gt)
+            return self._global(torch.stack([loss.float(), m0, m1]))
 
     def _global(self, out: torch.Tensor) -> torch.Tensor:
         """(loss, metric_num, metric_den) of this rank's batch -> those of
@@ -252,14 +259,21 @@ class AgentBase:
 
     # ------------------------------------------------------------------ step
     def _put_batch(self, batch: Sequence) -> tuple:
-        return tuple(torch.as_tensor(b).to(self.device, non_blocking=True)
-                     for b in batch)
+        with trace.span("h2d"):
+            out = tuple(torch.as_tensor(b).to(self.device, non_blocking=True)
+                        for b in batch)
+            if trace.enabled():     # the arrays that were not on the device
+                trace.count("h2d_bytes", sum(t.nbytes for b, t in
+                                             zip(batch, out) if t is not b))
+            return out
 
     def dispatch(self, *batch, is_train: bool) -> torch.Tensor:
         """Enqueue one batch (clips, ids, mask, types, gt) and return the
         stacked (loss, metric_num, metric_den) device vector unread."""
-        batch = self._put_batch(batch)
-        return (self._train_step if is_train else self._eval_step)(*batch)
+        with trace.span("step"):
+            trace.count("steps")
+            batch = self._put_batch(batch)
+            return (self._train_step if is_train else self._eval_step)(*batch)
 
     def step(self, *batch, is_train: bool):
         """One batch -> (loss, metric_num, metric_den), host floats."""

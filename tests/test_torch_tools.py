@@ -427,7 +427,10 @@ def test_profile_forward_latency_and_trace(tmp_path, monkeypatch, capsys):
     assert got["batch"] == 1 and len(got["latency_ms"]) == 2
     assert 0 < got["p50_ms"] <= got["p90_ms"]
     assert got["plain_route_gflop"] > 0
-    assert json.loads(Path(got["trace"]).read_text())["traceEvents"]
+    events = json.loads(Path(got["trace"]).read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"lrce.forward", "lrce.swin", "lrce.bert", "lrce.fusion",
+            "lrce.fusion.clip"} <= names
     out = capsys.readouterr().out
     assert "plain-route flops:" in out and "per-question latency:" in out
 
