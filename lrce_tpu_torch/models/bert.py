@@ -20,6 +20,7 @@ from torch import nn
 
 from lrce_tpu_torch.ops.nn import LayerNorm, Linear, dropout, gelu
 from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp
+from lrce_tpu_torch.utils.graphs import GraphCache
 
 LN_EPS = 1e-12
 
@@ -176,6 +177,7 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(cfg, generator)
         self.encoder = BertEncoder(cfg, dtype, generator)
         self.pooler = BertPooler(cfg, dtype, generator)
+        self.graphs = GraphCache("bert")
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -183,7 +185,15 @@ class BertModel(nn.Module):
                 training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, L) token ids -> (B, L, hidden) last hidden state. The
-        embeddings are f32; the layers run in the compute dtype."""
+        embeddings are f32; the layers run in the compute dtype. A no-grad
+        call on the card replays ``_forward`` from a CUDA graph
+        (``utils/graphs.py``)."""
+        return self.graphs(self, self._forward,
+                           (input_ids, attention_mask, token_type_ids),
+                           training, generator)
+
+    def _forward(self, input_ids, attention_mask, token_type_ids,
+                 training: bool = False, generator=None) -> torch.Tensor:
         b, s = input_ids.shape
         rate = self.cfg.hidden_dropout
         if token_type_ids is None:

@@ -28,6 +28,7 @@ from lrce_tpu_torch.ops.nn import (LayerNorm, Linear, MultiheadAttention,
                                    dropout, gelu)
 from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp
 from lrce_tpu_torch.utils import trace
+from lrce_tpu_torch.utils.graphs import GraphCache
 
 LN_EPS = 1e-12
 NUM_LAYERS = 12
@@ -124,6 +125,7 @@ class LRCEHead(nn.Module):
         self.projection_layer = (
             Linear(video_feature_dim, feature_dim, dtype=dtype, generator=generator)
             if video_feature_dim != feature_dim else None)
+        self.graphs = GraphCache("fusion")
 
     def _embed(self, video, text, training, generator):
         with trace.span("fusion.embed"):
@@ -144,8 +146,15 @@ class LRCEHead(nn.Module):
                 training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """video (B, n_clips, T, HW, Dv); text (B, L, D), or (B, M, L, D) for
-        mc. Returns (B, num_classes) for oe, (B, M) for mc, (B,) for count."""
+        mc. Returns (B, num_classes) for oe, (B, M) for mc, (B,) for count.
+        A no-grad call on the card replays ``_forward`` from a CUDA graph
+        (``utils/graphs.py``)."""
         del texts_attention_mask  # reference quirk: never applied
+        return self.graphs(self, self._forward, (video, text), training,
+                           generator)
+
+    def _forward(self, video, text, training: bool = False,
+                 generator=None) -> torch.Tensor:
         batch = video.shape[0]
         fuse = lambda v, t: self.fusion_transformer(  # noqa: E731
             v, t, self.dropout_rate, training, generator)
