@@ -67,6 +67,21 @@ Phases, each raising on failure (the script then exits non-zero):
      pieces taken alone above (LN1 + gather, qkv, the CTA, and the back half
      at stages 0-1 or proj, LN2, fc1, fc2 at stage 2), the library's product
      for each GEMM, and the remainder, as one JSON line;
+  3b. swinl: Video Swin-L at 384 x 384 and 5 frames, as the
+     msvd-swinl384-train cell runs it (the window (3, 12, 12), N = 432 at
+     every stage, C = 192 / 384 / 768 / 1536): the forward CTA alone
+     (attn_fwd_big_kernel in 64-row CTAs) and K4's rows / columns pair at
+     every stage, masked and not at stages 0-2, at 6 clips and at a step's
+     60, as at N = 392 above (the CTA counted, reset before each call; the
+     plain versions in chunks of 12 / 24 / 30 / 60 clips); K2 at stages 2-3
+     (C = 768 masked and not, C = 1536 with 48 heads, its LN1 over 1536
+     columns) at 60 clips against its plain version, attn_fwd_big_kernel
+     and K2 once a call; LN1 + gather at C = 1536 alone; each timed beside
+     its bound and summed over a step's calls (forward CTA 28, K4 24, K2
+     20); then one stage of each route at Swin-L's widths through
+     ``BasicLayer`` with grad mode on and off, its launches counted (K1 /
+     K3 / K6 / K5 / K4 at C = 192, K2 / K4 at C = 768 and 1536, the
+     forward CTAs attn_fwd_big_kernel alone);
   4. forward: the flagship LRCEModel (Video Swin-B, BERT-base, 12-layer
      fusion, open-ended head, random weights from a seed) on the card in
      bf16 answers 3 requests of 2 questions x 3 clips x 5 x 224 x 224 uint8
@@ -174,7 +189,8 @@ In the kernels line, ms / plain_ms / bound_ms are sums over the calls one
 6-clip request (K1, K3, K2, K7; one call for K8) or the backward of one
 6-clip step (K6, K5, K4) makes; ``clips48`` holds the same three sums over
 the calls of one 48-clip train step; K4's ``clips6_n392`` and
-``clips48_n392`` the same at 16 frames (N = 392), with the clips of each
+``clips48_n392`` the same at 16 frames (N = 392) and ``clips6_n432`` /
+``clips60_n432`` at Swin-L's N = 432, with the clips of each
 call of each stage's plain version (``plain_chunk``: its time is the sum
 of those calls over all the clips). bound_ms is the larger of the call's
 operations over 989 TFLOP/s (dense bf16) and its bytes (each input read
@@ -198,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -623,6 +640,40 @@ def phase_gemms():
 ATTN_CORE_CALLS = (4, 4, 36, 2)
 
 
+class Geometry(NamedTuple):
+    """Clips whose windows take attn_fwd_big_kernel and K4's rows / columns
+    pair: the stages (D, H, W, C, heads), the window and the shift of the
+    shifted blocks, the clips of a request and of a train step, the clips a
+    call of each stage's plain version takes (where a step's f32 (N, N)
+    tensors do not fit in one), and the forward CTA's and K4's calls a
+    train step, per stage (half of them masked at stages 0-2)."""
+    stages: tuple
+    window: tuple
+    shift: tuple
+    clips: tuple
+    plain_clips: tuple
+    core_calls: tuple
+    k4_calls: tuple
+
+
+# Swin-B's 16-frame clips, N = 392 (see STAGES16)
+N392 = Geometry(STAGES16, WINDOW16, SHIFT, (N_CLIPS, TRAIN_CLIPS),
+                N392_PLAIN_CLIPS, ATTN_CORE_CALLS, CALLS_PER_BACKWARD["K4"])
+# Video Swin-L at 384 x 384, 5 frames, as the msvd-swinl384-train cell runs
+# it: the window (8, 12, 12) clamped to (3, 12, 12), N = 432 at every stage,
+# stages 0-2 shifted by (0, 6, 6) in every other block, stage 3 one
+# unshifted window over its 12 x 12 map. Stages 0-1 run K1 / K3 (K6
+# recomputes their attention in the backward), stages 2-3 K2 (C > 512); K4
+# answers every block. A step of the cell: 20 questions x 3 clips.
+STAGESL = ((3, 96, 96, 192, 6), (3, 48, 48, 384, 12), (3, 24, 24, 768, 24),
+           (3, 12, 12, 1536, 48))
+WINDOWL = (3, 12, 12)
+SWINL_CLIPS = 60
+N432 = Geometry(STAGESL, WINDOWL, (0, 6, 6), (N_CLIPS, SWINL_CLIPS),
+                (12, 24, 30, 60), (4, 4, 18, 2), (2, 2, 18, 2))
+K2_CALLS_SWINL = (0, 0, 18, 2)
+
+
 def phase_attn_core():
     """The attention-forward CTA alone against its plain version, timed
     between two timings of the library's attention; the LayerNorm alone."""
@@ -747,7 +798,7 @@ def phase_attn_core():
     window, c, heads = (8, 7, 7), 128, 4
     n_big = window[0] * window[1] * window[2]
     x = _seeded((2, 8, 14, 14, c), gen)
-    n392_rows, n392_sums = _attn_core_n392(gen)
+    n392_rows, n392_sums = _attn_core_big(gen, N392)
     out += n392_rows
     # the same geometry through a Swin stage: with grad mode on and off it
     # runs K1 / K3, and with grad K6 / K5 and K4 (its rows / columns pair)
@@ -798,32 +849,33 @@ def _cta_named(counts: dict) -> str:
     return ", ".join(f"{k} x{v}" for k, v in counts.items() if v) or "none"
 
 
-def _attn_core_n392(gen):
-    """The attention-forward CTA at the 16-frame window (8, 7, 7), N = 392,
-    which the launcher gives attn_fwd_big_kernel: at every stage (masked and
-    not at stages 0-2), at 6 clips (a request) and 48 (a step), each call's
-    CTA named by the library's launch counts (that CTA once, the others
-    never), its output held to the plain version chunk by chunk of
-    N392_PLAIN_CLIPS clips (the output is per window), timed between two
+def _attn_core_big(gen, geo: Geometry):
+    """The attention-forward CTA at the windows of ``geo`` (N392: the
+    16-frame window (8, 7, 7); N432: Swin-L's (3, 12, 12)), which the
+    launcher gives attn_fwd_big_kernel: at every stage (masked and not at
+    stages 0-2), at a request's clips and a step's, each call's CTA named by
+    the library's launch counts, reset just before (that CTA once, the
+    others never), its output held to the plain version chunk by chunk of
+    ``geo.plain_clips`` clips (the output is per window), timed between two
     timings of the library's attention and two of the plain version (the
     total of its chunk calls), with its bound. Returns attn_core rows (``n``
-    392) and {clips: the sums over the 46 calls of a step}."""
+    the window's tokens) and {clips: the sums over the calls of a step}."""
     import torch.nn.functional as F
 
     from lrce_tpu_torch.models.swin3d import compute_shift_mask
     from lrce_tpu_torch.ops import window_attn as WA
 
-    dgen = torch.Generator(device="cuda").manual_seed(393)
-    n = WINDOW16[0] * WINDOW16[1] * WINDOW16[2]
+    n = math.prod(geo.window)
+    dgen = torch.Generator(device="cuda").manual_seed(n + 1)
     rows, totals = [], {}
-    for clips in (N_CLIPS, TRAIN_CLIPS):
+    for clips in geo.clips:
         total = totals[clips] = {"ms": 0.0, "plain_ms": 0.0,
                                  "bound_ms": 0.0, "library_ms": 0.0}
-        for stage, (d, h, w, c, heads) in enumerate(STAGES16):
-            nwin_clip = ((d // WINDOW16[0]) * (h // WINDOW16[1])
-                         * (w // WINDOW16[2]))
+        for stage, (d, h, w, c, heads) in enumerate(geo.stages):
+            nwin_clip = ((d // geo.window[0]) * (h // geo.window[1])
+                         * (w // geo.window[2]))
             nwin, hd = clips * nwin_clip, c // heads
-            pc = min(clips, N392_PLAIN_CLIPS[stage])
+            pc = min(clips, geo.plain_clips[stage])
             qkv = _device_seeded((nwin, n, 3 * c), dgen)
             rel = torch.randn((heads, n, n), generator=gen).cuda()
             q, k, v = (a.contiguous() for a in qkv.reshape(
@@ -832,7 +884,7 @@ def _attn_core_n392(gen):
                 mask, lq, lk, lv, add = None, q, k, v, rel[None]
                 if masked:
                     mask = torch.from_numpy(compute_shift_mask(
-                        (d, h, w), WINDOW16, SHIFT)).cuda()
+                        (d, h, w), geo.window, geo.shift)).cuda()
                     lq, lk, lv = (a.reshape(clips, nwin_clip * heads, n, hd)
                                   for a in (q, k, v))
                     add = (rel[None] + mask[:, None]).reshape(
@@ -841,9 +893,9 @@ def _attn_core_n392(gen):
                 got, err = WA.window_attention_core(qkv, rel, mask, heads), 0.0
                 ctas = WA.attn_fwd_cta_launches(reset=True)
                 require(ctas == _only_cta("attn_fwd_big_kernel"),
-                        f"attn_core at N = 392 launched {ctas}, expected "
+                        f"attn_core at N = {n} launched {ctas}, expected "
                         "attn_fwd_big_kernel once")
-                label = (f"attn_core N 392 stage {stage}, {clips} clips, "
+                label = (f"attn_core N {n} stage {stage}, {clips} clips, "
                          f"{'masked' if masked else 'unmasked'} ({nwin} "
                          f"windows x {heads} heads, head_dim {hd}, "
                          f"{_cta_named(ctas)})")
@@ -868,7 +920,7 @@ def _attn_core_n392(gen):
                         qkv[f * nwin_clip:(f + pc) * nwin_clip], rel, mask,
                         heads) for f in range(0, clips, pc)]
 
-                iters = 5 if clips == TRAIN_CLIPS else 10
+                iters = 5 if clips == geo.clips[-1] else 10
                 p1, lib, k1, k2, lib2, p2 = (_cuda_time_ms(f, i) for f, i in (
                     (run_p, 1), (run_lib, iters), (run_k, iters),
                     (run_k, iters), (run_lib, iters), (run_p, 1)))
@@ -876,7 +928,7 @@ def _attn_core_n392(gen):
                 work = (4 * t * n * c, 2 * t * 4 * c + heads * n * n * 4
                         + (nwin_clip * n * n * 4 if masked else 0))
                 bound, by = _bound_ms(work)
-                calls = ATTN_CORE_CALLS[stage] // (2 if stage < 3 else 1)
+                calls = geo.core_calls[stage] // (2 if stage < 3 else 1)
                 ms, lib, plain = (k1 + k2) / 2, (lib + lib2) / 2, (p1 + p2) / 2
                 for key, val in (("ms", ms), ("plain_ms", plain),
                                  ("bound_ms", bound), ("library_ms", lib)):
@@ -896,9 +948,8 @@ def _attn_core_n392(gen):
                 del mask, add, lq, lk, lv
             del qkv, q, k, v
             torch.cuda.empty_cache()
-        print(f"[attn_core] N = 392, attn_fwd_big_kernel, the "
-              f"{sum(ATTN_CORE_CALLS)} calls of one {clips}-clip step of 16 "
-              f"frames: kernel {total['ms']:.4f} ms, plain "
+        print(f"[attn_core] N = {n}, attn_fwd_big_kernel, the "
+              f"{sum(geo.core_calls)} calls of one {clips}-clip step: kernel {total['ms']:.4f} ms, plain "
               f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} "
               f"ms, library {total['library_ms']:.4f} ms", flush=True)
     return rows, totals
@@ -1176,7 +1227,7 @@ def phase_kernels():
                        _work("K3", clips, stage, True, True))
             del x, g
             torch.cuda.empty_cache()
-    n392 = _k4_n392(gen)
+    n392 = _k4_pair(gen, N392)
     n392["forward"] = _fwd_n392(gen)
     by_clips[N_CLIPS]["K4"]["max_abs_err"] = max(
         by_clips[N_CLIPS]["K4"]["max_abs_err"], n392.pop("max_abs_err"))
@@ -1263,7 +1314,7 @@ def _device_seeded(shape, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
 
 
-def _pair_launched(run) -> None:
+def _pair_launched(run, n: int) -> None:
     """One call of ``run`` (K4 at N > 160) launches the rows and the columns
     CTA of the pair, and no capture holds attn_bwd_kernel (torch.profiler; a
     capture that lost events, even some of one call's, is taken again, up to
@@ -1285,10 +1336,10 @@ def _pair_launched(run) -> None:
                 for k in ("attn_bwd_rows_kernel", "attn_bwd_cols_kernel",
                           "attn_bwd_kernel")}
         require(not pair["attn_bwd_kernel"],
-                f"K4 at N = 392 launched attn_bwd_kernel: {seen[-1]}")
+                f"K4 at N = {n} launched attn_bwd_kernel: {seen[-1]}")
         if pair["attn_bwd_rows_kernel"] and pair["attn_bwd_cols_kernel"]:
             return
-    require(False, f"K4 at N = 392: no capture of {PROFILE_TRIES} held both "
+    require(False, f"K4 at N = {n}: no capture of {PROFILE_TRIES} held both "
             f"CTAs of the pair: {seen}")
 
 
@@ -1308,41 +1359,40 @@ def _k4_plain_in_chunks(k4, clips: int):
     return (torch.cat(dys), *sums)
 
 
-def _k4_n392(gen):
-    """K4 at the 16-frame window (8, 7, 7), N = 392, the rows / columns
-    pair: every output against the plain version at every stage (shifted
-    and not at stages 0-2), at 6 clips (a request) and 48 (a train step;
-    at stages 0-1 the plain version runs in chunks of N392_PLAIN_CLIPS' 12 /
-    24 clips, where it fits: ``_k4_plain_in_chunks``), a second call
-    bit-identical, the pair's two CTAs seen by the profiler; kernel time,
-    plain time (all the chunk calls) and the bound at the step's clips,
-    summed over the 24 calls of a step. Returns {clips: sums} and the
-    largest error."""
+def _k4_pair(gen, geo: Geometry):
+    """K4 at the windows of ``geo`` (N392, N432), the rows / columns pair:
+    every output against the plain version at every stage (shifted and not
+    at stages 0-2), at a request's clips and a train step's (the plain
+    version in chunks of ``geo.plain_clips`` clips where a step's do not
+    fit: ``_k4_plain_in_chunks``), a second call bit-identical, the pair's
+    two CTAs seen by the profiler; kernel time, plain time (all the chunk
+    calls) and the bound, summed over the calls of a step. Returns {clips:
+    sums} and the largest error."""
     from lrce_tpu_torch.models.swin3d import compute_shift_mask
     from lrce_tpu_torch.ops import window_attn as WA
 
-    dgen = torch.Generator(device="cuda").manual_seed(392)
-    n = WINDOW16[0] * WINDOW16[1] * WINDOW16[2]
+    n = math.prod(geo.window)
+    dgen = torch.Generator(device="cuda").manual_seed(n)
     out, worst = {}, 0.0
-    for clips in (N_CLIPS, TRAIN_CLIPS):
+    for clips in geo.clips:
         sums = out[clips] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                              "plain_chunk": []}
-        for stage, (d, h, w, c, heads) in enumerate(STAGES16):
+        for stage, (d, h, w, c, heads) in enumerate(geo.stages):
             x = _device_seeded((clips, d, h, w, c), dgen)
             g = _device_seeded((clips, d, h, w, c), dgen)
             p = _block_weights(c, heads, n, gen, None)
             bwd = [p[k] for k in ("ln1s", "ln1b", "qkv_w", "qkv_b",
                                   "proj_w", "rel_bias")]
-            nwin = (d // WINDOW16[0], h // WINDOW16[1], w // WINDOW16[2])
+            nwin = (d // geo.window[0], h // geo.window[1], w // geo.window[2])
             mask = torch.from_numpy(compute_shift_mask(
-                (d, h, w), WINDOW16, SHIFT)).reshape(*nwin, n, n).cuda()
-            pc = min(clips, N392_PLAIN_CLIPS[stage])
+                (d, h, w), geo.window, geo.shift)).reshape(*nwin, n, n).cuda()
+            pc = min(clips, geo.plain_clips[stage])
             sums["plain_chunk"].append(pc)
             kinds = (False, True) if stage < 3 else (False,)
             for masked in kinds:
-                m, s = (mask, SHIFT) if masked else (None, NO_SHIFT)
-                k4 = (x, g, *bwd, m, WINDOW16, heads, 1e-5, s)
-                label = (f"K4 N 392 stage {stage} ({clips}, {d}, {h}, {w}, "
+                m, s = (mask, geo.shift) if masked else (None, NO_SHIFT)
+                k4 = (x, g, *bwd, m, geo.window, heads, 1e-5, s)
+                label = (f"K4 N {n} stage {stage} ({clips}, {d}, {h}, {w}, "
                          f"{c}) {'masked' if masked else 'unmasked'}")
                 got = WA.window_attention_bwd(*k4)
                 again = WA.window_attention_bwd(*k4)
@@ -1356,19 +1406,19 @@ def _k4_n392(gen):
                                              "clips)" if pc < clips else ""),
                         a, b))
                 del got, want
-                if clips == N_CLIPS:
-                    _pair_launched(lambda: WA.window_attention_bwd(*k4))
-                it_k, it_p = (5, 2) if clips == TRAIN_CLIPS else (4, 4)
+                if clips == geo.clips[0]:
+                    _pair_launched(lambda: WA.window_attention_bwd(*k4), n)
+                it_k, it_p = (5, 2) if clips == geo.clips[-1] else (4, 4)
                 p1, k1, k2, p2 = (_cuda_time_ms(f, i) for f, i in (
                     (lambda: _k4_plain_in_chunks(k4, pc), it_p),
                     (lambda: WA.window_attention_bwd(*k4), it_k),
                     (lambda: WA.window_attention_bwd(*k4), it_k),
                     (lambda: _k4_plain_in_chunks(k4, pc), it_p)))
                 tk, tp = (k1 + k2) / 2, (p1 + p2) / 2
-                work = _work("K4", clips, stage, masked, stages=STAGES16,
-                             window=WINDOW16)
+                work = _work("K4", clips, stage, masked, stages=geo.stages,
+                             window=geo.window)
                 bound, by = _bound_ms(work)
-                calls = CALLS_PER_BACKWARD["K4"][stage] // len(kinds)
+                calls = geo.k4_calls[stage] // len(kinds)
                 for key, v in (("ms", tk), ("plain_ms", tp),
                                ("bound_ms", bound)):
                     sums[key] += calls * v
@@ -1381,8 +1431,8 @@ def _k4_n392(gen):
                 del k4
             del x, g, mask
             torch.cuda.empty_cache()
-        print(f"[kernels] K4 at N = 392, the 24 calls of one {clips}-clip "
-              f"step of 16 frames: kernel {sums['ms']:.4f} ms, plain "
+        print(f"[kernels] K4 at N = {n}, the {sum(geo.k4_calls)} calls of "
+              f"one {clips}-clip step: kernel {sums['ms']:.4f} ms, plain "
               f"{sums['plain_ms']:.4f} ms (each stage's plain calls of "
               f"{sums['plain_chunk']} clips), bound "
               f"{sums['bound_ms']:.4f} ms", flush=True)
@@ -1488,6 +1538,141 @@ def _fwd_n392(gen):
               f"{r['plain_ms']:.4f} ms (plain calls of {r['plain_chunk']} "
               f"clips), bound {r['bound_ms']:.4f} ms", flush=True)
     return sums
+
+
+def phase_swinl():
+    """Video Swin-L at the msvd-swinl384-train cell's shapes (N432: N = 432
+    at every stage, C = 192-1536): the forward CTA alone and K4's pair at
+    every stage (``_attn_core_big``, ``_k4_pair``), K2 at stages 2-3 (C =
+    768 masked and not; C = 1536 with 48 heads, whose LN1 spans 1536
+    columns) held to its plain version chunk by chunk and timed beside its
+    bound, its forward CTA counted; LN1 + gather at C = 1536 alone; and a
+    Swin-L stage of each route through ``BasicLayer`` with grad mode on and
+    off, its launches counted (K4's pair and attn_fwd_big_kernel, never the
+    WMMA CTA or the plain block). Returns {"core": {clips: sums}, "K4":
+    {clips: sums}, "K2": sums at a step's clips}."""
+    from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
+                                              SwinConfig, compute_shift_mask)
+    from lrce_tpu_torch.ops import gemm as G
+    from lrce_tpu_torch.ops import window_attn as WA
+
+    geo, gen = N432, torch.Generator().manual_seed(432)
+    n = math.prod(geo.window)
+    require(WA.attn_fwd_cta(n, 32) == "attn_fwd_big_kernel"
+            and WA.attn_bwd_supported(n, 32),
+            f"N = {n}, head_dim 32: the shape rules name no kernel")
+    core_rows, core = _attn_core_big(gen, geo)
+    print(json.dumps({"attn_core_n432": core_rows}), flush=True)
+    k4 = _k4_pair(gen, geo)
+    worst = k4.pop("max_abs_err")
+
+    dgen = torch.Generator(device="cuda").manual_seed(n + 2)
+    clips = geo.clips[-1]
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for stage in (2, 3):
+        d, h, w, c, heads = geo.stages[stage]
+        pc = geo.plain_clips[stage]
+        x = _device_seeded((clips, d, h, w, c), dgen)
+        p = _block_weights(c, heads, n, gen, None)
+        attn = [p[k] for k in ATTN_KEYS]
+        nwin = tuple(v // wv for v, wv in zip((d, h, w), geo.window))
+        kinds = (False, True) if stage < 3 else (False,)
+        for masked in kinds:
+            mask = (torch.from_numpy(compute_shift_mask(
+                (d, h, w), geo.window, geo.shift)).reshape(*nwin, n, n).cuda()
+                if masked else None)
+            args = (x, *attn, mask, geo.window, heads)
+            label = (f"K2 N {n} stage {stage} ({clips}, {d}, {h}, {w}, {c}), "
+                     f"{heads} heads, {'masked' if masked else 'unmasked'}")
+            WA.attn_fwd_cta_launches(reset=True)
+            _reset_counts()
+            got = WA.fused_window_attention_hsplit(*args)
+            ctas, counts = WA.attn_fwd_cta_launches(reset=True), _counts()
+            require(ctas == _only_cta("attn_fwd_big_kernel")
+                    and counts["K2"] == 1,
+                    f"{label} launched {ctas}, K2 {counts['K2']} time(s); "
+                    "expected attn_fwd_big_kernel and K2 once")
+
+            def run_p():
+                return torch.cat([WA.window_attention_plain(
+                    x[f:f + pc], *args[1:]) for f in range(0, clips, pc)])
+
+            k2["max_abs_err"] = max(k2["max_abs_err"], _compare(
+                label + (f" (plain in chunks of {pc} clips)" if pc < clips
+                         else ""), got, run_p()))
+            del got
+            p1, t1, t2, p2 = (_cuda_time_ms(f, i) for f, i in (
+                (run_p, 1), (lambda: WA.fused_window_attention_hsplit(*args),
+                             3),
+                (lambda: WA.fused_window_attention_hsplit(*args), 3),
+                (run_p, 1)))
+            work = _work("K2", clips, stage, masked, stages=geo.stages,
+                         window=geo.window)
+            bound, by = _bound_ms(work)
+            calls = K2_CALLS_SWINL[stage] // len(kinds)
+            tk, tp = (t1 + t2) / 2, (p1 + p2) / 2
+            for key, v in (("ms", tk), ("plain_ms", tp), ("bound_ms", bound)):
+                k2[key] += calls * v
+            print(f"[swinl] {label}: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}: {work[0] / 1e9:.3f} GFLOP, "
+                  f"{work[1] / 1e6:.3f} MB) per call; {calls} call(s) a step",
+                  flush=True)
+            del mask, args
+        if stage == 3:      # LN1 + gather over 1536 columns, alone
+            gam = 1.0 + 0.1 * torch.randn((c,), generator=gen).cuda()
+            bet = 0.1 * torch.randn((c,), generator=gen).cuda()
+            kw = dict(window=geo.window, gather=True)
+            _compare(f"ln_rows ln1 C {c}, {clips} clips",
+                     G.ln_rows(x, gam, bet, **kw),
+                     G.ln_rows_plain(x, gam, bet, **kw))
+            print(f"[swinl] ln_rows ln1 C {c}, {clips} clips: "
+                  f"{_cuda_time_ms(lambda: G.ln_rows(x, gam, bet, **kw)):.4f}"
+                  " ms", flush=True)
+        del x, p, attn
+        torch.cuda.empty_cache()
+    print(f"[swinl] K2 at N = {n}, the {sum(K2_CALLS_SWINL)} calls of one "
+          f"{clips}-clip step: kernel {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms",
+          flush=True)
+
+    # a stage of each route at Swin-L's widths, two clips: K1 / K3 with K6,
+    # K5 and K4 (C = 192), K2 and K4 (C = 768 shifted, C = 1536 unshifted)
+    cfg = SwinConfig(window_size=(8, 12, 12))
+    for c, heads, (d, h, w), want in (
+            (192, 6, (3, 24, 24), {"K1": 1, "K3": 1, "K6": 2, "K5": 2,
+                                   "K4": 2, "K2": 0}),
+            (768, 24, (3, 24, 24), {"K2": 2, "K4": 2, "K1": 0, "K3": 0}),
+            (1536, 48, (3, 12, 12), {"K2": 2, "K4": 2, "K1": 0, "K3": 0})):
+        layer = BasicLayer(c, 2, heads, cfg, False, torch.bfloat16,
+                           torch.Generator().manual_seed(c)).cuda()
+        x = _device_seeded((2, d, h, w, c), dgen)
+        xs = x.detach().requires_grad_()
+        _reset_counts()
+        WA.attn_fwd_cta_launches(reset=True)
+        layer(xs, True, DeviceConstants()).float().sum().backward()
+        with_grad, ctas = _counts(), WA.attn_fwd_cta_launches(reset=True)
+        _reset_counts()
+        with torch.no_grad():
+            layer(x, True, DeviceConstants())
+        without = _counts()
+        fwd = sum(want[k] for k in ("K1", "K3", "K2")) + want.get("K6", 0)
+        print(f"[route] Swin-L C {c}, {heads} heads, map {(d, h, w)}: with "
+              f"grad {with_grad}, forward CTAs {ctas}; without grad "
+              f"{without}", flush=True)
+        require(all(with_grad[k] == v for k, v in want.items())
+                and ctas == _only_cta("attn_fwd_big_kernel", fwd)
+                and xs.grad is not None
+                and bool(torch.isfinite(xs.grad).all()),
+                f"a Swin-L stage at C = {c} launched {with_grad} and the "
+                f"forward CTAs {ctas}, expected {want} and "
+                f"attn_fwd_big_kernel {fwd} times")
+        require(all(without[k] == want[k] for k in ("K1", "K3", "K2")),
+                f"a Swin-L stage at C = {c} without grad launched {without}")
+        del layer, x, xs
+    worst = max(worst, k2["max_abs_err"])
+    print(f"[swinl] N = {n}, largest |kernel - plain| {worst:.4g}",
+          flush=True)
+    return {"core": core, "K4": k4, "K2": k2}
 
 
 def _grads(fn, x, leaves, g):
@@ -3078,6 +3263,7 @@ def main() -> int:
     attn_rows, ln_ms, attn_n392 = phase_attn_core()
     (results, results48, per_call, call_ms, back_half_ms,
      n392) = phase_kernels()
+    swinl = phase_swinl()
     phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms)
     phase_function_grads()
     fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
@@ -3131,13 +3317,20 @@ def main() -> int:
             "clips48": {key: results48[k][key]
                         for key in ("ms", "plain_ms", "bound_ms")}})
         if k == "K4":
-            # the same sums at the 16-frame window, N = 392 (the pair)
+            # the same sums at the 16-frame window, N = 392 (the pair), and
+            # at Swin-L's, N = 432
             for clips, key in ((N_CLIPS, "clips6_n392"),
                                (TRAIN_CLIPS, "clips48_n392")):
                 kernels[-1][key] = n392[clips]
+            for clips in N432.clips:
+                kernels[-1][f"clips{clips}_n432"] = swinl["K4"][clips]
         elif k in n392["forward"]:
             # the 48-clip sums at the 16-frame window, N = 392
             kernels[-1]["clips48_n392"] = n392["forward"][k]
+        if k == "K2":
+            # Swin-L's stages 2-3 (C = 768, 1536) at a step of its cell
+            kernels[-1][f"clips{SWINL_CLIPS}_n432"] = {
+                x: swinl["K2"][x] for x in ("ms", "plain_ms", "bound_ms")}
         if k == "K6":
             # the attention-forward CTA that K1 / K3 / K2 / K6 share at the
             # 16-frame window (attn_fwd_big_kernel), alone: the 46 calls of
@@ -3149,6 +3342,10 @@ def main() -> int:
                        for x in ("ms", "plain_ms", "bound_ms", "library_ms")},
                     "launches_per_16_frame_step":
                         frames16["attn_ctas"]["attn_fwd_big_kernel"]}
+            for clips in N432.clips:
+                kernels[-1][f"attn_core_clips{clips}_n432"] = {
+                    x: swinl["core"][clips][x]
+                    for x in ("ms", "plain_ms", "bound_ms", "library_ms")}
     print(f"[summary] {card}; build {lib.build_seconds:.1f} s; request "
           f"latency ms kernel route {lat_k}, plain route {lat_p}, with K7 "
           f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "
@@ -3161,7 +3358,14 @@ def main() -> int:
           f"{n392[TRAIN_CLIPS]['bound_ms']:.2f}), the forward attention CTA "
           f"at N = 392 {attn_n392[TRAIN_CLIPS]['ms']:.2f} ms a step (bound "
           f"{attn_n392[TRAIN_CLIPS]['bound_ms']:.2f}, library "
-          f"{attn_n392[TRAIN_CLIPS]['library_ms']:.2f}); bench "
+          f"{attn_n392[TRAIN_CLIPS]['library_ms']:.2f}); Swin-L, N = 432, "
+          f"a {SWINL_CLIPS}-clip step: K4 "
+          f"{swinl['K4'][SWINL_CLIPS]['ms']:.2f} ms (bound "
+          f"{swinl['K4'][SWINL_CLIPS]['bound_ms']:.2f}), the forward CTA "
+          f"{swinl['core'][SWINL_CLIPS]['ms']:.2f} ms (bound "
+          f"{swinl['core'][SWINL_CLIPS]['bound_ms']:.2f}), K2 "
+          f"{swinl['K2']['ms']:.2f} ms (bound "
+          f"{swinl['K2']['bound_ms']:.2f}); bench "
           f"{tools['bench']['value']} clips/s; CLIs: train "
           f"{cli['train_s']:.2f} s, eval {cli['eval_s']:.2f} s, step ms "
           f"{[round(t, 1) for t in cli['step_ms']]}, loader-wait share "

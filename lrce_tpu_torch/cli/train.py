@@ -55,8 +55,11 @@ TASK_TYPES = ("oe", "mc", "count")
 
 
 def build_datasets(train_args, splits=("train", "val")):
-    """One dataset per split, from the dataset directory's layout."""
+    """One dataset per split, from the dataset directory's layout; frames at
+    the model config's ``frame_size`` (224, or 384 for Swin-L)."""
+    size = getattr(train_args, "frame_size", 224)
     common = dict(
+        frame_size=(size, size),
         max_text_token_len=train_args.text_seq_len,
         sanity_check=getattr(train_args, "sanity_check", False),
         frames_per_clip=train_args.frame_sample_size,

@@ -54,8 +54,9 @@
 // attention CTA, split-K GEMMs, dy GEMM) and the recomputed qkv and ctx are
 // stored; keeping them on chip is later work.
 //
-// Windows of 161-400 tokens (16-frame clips: the window (8, 7, 7), N = 392
-// at every stage) take a pair of CTAs instead, because attn_bwd_kernel keeps
+// Windows of 161-448 tokens (16-frame clips of Swin-B: the window (8, 7, 7),
+// N = 392 at every stage; Swin-L at 384 on 5-frame clips: (3, 12, 12), N =
+// 432) take a pair of CTAs instead, because attn_bwd_kernel keeps
 // a window's whole P and dS in shared memory (2 x 400 x 408 x 2 bytes at
 // N = 392, three times the 227 KB there is) and a warp's S and drel for 400
 // keys in registers (400 a thread, past the 255 cap). Nothing of size N x N
@@ -85,7 +86,10 @@
 //     leave once. Its 80 keys' columns of drel (N x 80 f32, rows padded to
 //     84 floats: conflict-free fragment adds) stay in shared memory across
 //     the windows it walks, each element owned by one thread of the set
-//     whose queries it belongs to, and leave once per CTA. Its first
+//     whose queries it belongs to, and leave once per CTA (past 432 padded
+//     tokens the rows lose their 4 floats of padding, BL_DREL_LD_TIGHT: at
+//     Np = 448 the padded slice would take the CTA past 227 KB; the adds
+//     then meet 4-way bank conflicts). Its first
 //     version (one set of five warps, the window's tiles loaded and waited
 //     for at each window's start, the bias read from L2 where each logit
 //     needed it) ran 23x its bound at N = 392: one CTA of five warps an SM
@@ -120,11 +124,12 @@ namespace {
 
 constexpr int BW_MAX_NB = 20;     // key blocks of 8: up to 160 padded tokens
 constexpr int BW_MAX_WARPS = 10;  // one warp per 16 query rows
-// the rows / columns pair for windows of 161-400 tokens
-constexpr int BW_BIG_MAX_NP = 400;         // padded tokens
+// the rows / columns pair for windows of 161-448 tokens
+constexpr int BW_BIG_MAX_NP = 448;         // padded tokens
 constexpr int BL_WARPS = 5;                // a warp per 16 rows of a block
 constexpr int BL_ROWS = 16 * BL_WARPS;     // query rows or keys of a CTA
 constexpr int BL_DREL_LD = BL_ROWS + 4;    // floats a row of the drel slice
+constexpr int BL_DREL_LD_TIGHT = BL_ROWS;  // the same where that does not fit
 constexpr int BC_SETS = 2;                 // the columns CTA's warp sets
 constexpr int BC_WARPS = BL_WARPS * BC_SETS;
 
@@ -143,13 +148,19 @@ size_t rows_smem_bytes(int Np, int hd) {
          (size_t)BL_WARPS * hd * sizeof(float);      // dq column sums
 }
 
-size_t cols_smem_bytes(int Np, int hd) {
+size_t cols_smem_bytes(int Np, int hd, int drel_ld) {
   return (size_t)2 * Np * hd * sizeof(bf16) +        // q, dctx of the window
          (size_t)Np * sizeof(float4) +               // row statistics
          (size_t)Np * sizeof(int) +                  // mask labels
-         (size_t)Np * BL_DREL_LD * sizeof(float) +   // drel slice
+         (size_t)Np * drel_ld * sizeof(float) +      // drel slice
          (size_t)BL_ROWS * 2 * hd * sizeof(float) +  // set 1's dk, dv
          (size_t)BL_WARPS * 2 * hd * sizeof(float);  // dk, dv column sums
+}
+
+// Floats a row of the columns CTA's drel slice: padded where it fits
+int cols_drel_ld(int Np, int hd) {
+  return cols_smem_bytes(Np, hd, BL_DREL_LD) <= kMaxSmem ? BL_DREL_LD
+                                                          : BL_DREL_LD_TIGHT;
 }
 
 // Rows of the qkv-bias partials: one per window group for attn_bwd_kernel,
@@ -831,7 +842,8 @@ __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
 }
 
 // The columns CTA of the pair: grid (groups, nH, big_blocks(Np)), BC_WARPS
-// warps in BC_SETS sets of BL_WARPS; runs after the rows CTA, whose stats it
+// warps in BC_SETS sets of BL_WARPS, LD floats a row of the drel slice
+// (cols_drel_ld); runs after the rows CTA, whose stats it
 // reads. Writes the dk and dv columns of dqkv for its keys, its keys'
 // columns of drel summed over its windows into prel[grp][h] (N x N), and its
 // dk, dv column sums into row (grp * blocks + blk) of pb.
@@ -849,7 +861,7 @@ __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
 //     warps' A fragments, the next window's while this one runs;
 //   - the bias of the next query block is loaded into registers while this
 //     one multiplies (8 values a thread), not read when it is needed.
-template <int HD>
+template <int HD, int LD>
 __global__ void __launch_bounds__(BC_WARPS * 32, 1)
 attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
                      const bf16* __restrict__ dctx,
@@ -883,7 +895,7 @@ attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
                                                 Np * sizeof(float4));
   float* drs = reinterpret_cast<float*>(smem + 2 * full +
                                         Np * (sizeof(float4) + sizeof(int)));
-  float4* xk = reinterpret_cast<float4*>(drs + Np * BL_DREL_LD);
+  float4* xk = reinterpret_cast<float4*>(drs + Np * LD);
   float* wsum = reinterpret_cast<float*>(xk + BL_WARPS * 2 * CH * 32);
 
   // the copies of query block qb of window win, by this set's threads
@@ -936,7 +948,7 @@ attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
       load_block(win, 2 * i + set), cp_async_commit();
     for (; i < nbs - 1; ++i) cp_async_commit();
   }
-  for (int i = tid; i < Np * BL_DREL_LD; i += blockDim.x) drs[i] = 0.f;
+  for (int i = tid; i < Np * LD; i += blockDim.x) drs[i] = 0.f;
   for (int i = tid; i < BL_WARPS * 2 * HD; i += blockDim.x) wsum[i] = 0.f;
   __syncthreads();
 
@@ -1063,7 +1075,7 @@ attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
               p[ii] = ex2_approx(fmaf(v, kLog2e, -sq.x * kLog2e)) * sq.y;
               ds[ii] = p[ii] * (d[j][e] - sq.z);
             }
-            drs[qc * BL_DREL_LD + 16 * kw + g + hf * 8] += ds[ii];
+            drs[qc * LD + 16 * kw + g + hf * 8] += ds[ii];
           }
           ap[2 * j + hf] = pack_bf16(p[0], p[1]);
           as[2 * j + hf] = pack_bf16(ds[0], ds[1]);
@@ -1137,7 +1149,7 @@ attn_bwd_cols_kernel(const bf16* __restrict__ qkv,
   for (int idx = tid; idx < N * BL_ROWS; idx += blockDim.x) {
     const int q = idx / BL_ROWS, kl = idx % BL_ROWS;
     if (key0 + kl < N)
-      relp[(long long)q * N + key0 + kl] = drs[q * BL_DREL_LD + kl];
+      relp[(long long)q * N + key0 + kl] = drs[q * LD + kl];
   }
 }
 
@@ -1165,16 +1177,18 @@ int launch_attn_bwd(const bf16* qkv, const bf16* dctx, const float* rel_bias,
         nwin_clip, N, Np, C, groups, scale);
     return (int)cudaGetLastError();
   }
+  const int drel_ld = cols_drel_ld(Np, HD);
   const size_t s_rows = rows_smem_bytes(Np, HD);
-  const size_t s_cols = cols_smem_bytes(Np, HD);
+  const size_t s_cols = cols_smem_bytes(Np, HD, drel_ld);
   if (Np > BW_BIG_MAX_NP || s_rows > kMaxSmem || s_cols > kMaxSmem)
     return (int)cudaErrorInvalidValue;
+  auto cols = drel_ld == BL_DREL_LD ? attn_bwd_cols_kernel<HD, BL_DREL_LD>
+                                    : attn_bwd_cols_kernel<HD, BL_DREL_LD_TIGHT>;
   cudaError_t e = cudaFuncSetAttribute(
       attn_bwd_rows_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s_rows);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_bwd_cols_kernel<HD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)s_cols);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(groups, num_heads, big_blocks(Np));
@@ -1183,7 +1197,7 @@ int launch_attn_bwd(const bf16* qkv, const bf16* dctx, const float* rel_bias,
       nwin_total, nwin_clip, N, Np, C, groups, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_cols_kernel<HD><<<grid, BC_WARPS * 32, s_cols, stream>>>(
+  cols<<<grid, BC_WARPS * 32, s_cols, stream>>>(
       qkv, dctx, rel_bias, mask, labels, mask_off, stats, dqkv, prel, pb,
       nwin_total, nwin_clip, N, Np, C, groups, scale);
   return (int)cudaGetLastError();
@@ -1204,7 +1218,7 @@ extern "C" {
 // (groups x blocks, 3C) for windows of more than 160 padded tokens (blocks =
 // ceil(Np / 80)); ws_split (splits, 3C, C) f32; ws_stats (windows, nH, Np,
 // 4) f32 for windows of more than 160 padded tokens, else unused (Np = N
-// rounded up to 16). Takes head_dim 16 or 32 and windows of at most 400
+// rounded up to 16). Takes head_dim 16 or 32 and windows of at most 448
 // tokens; 1 <= groups <= windows.
 int lrce_attn_bwd(const void* x, const void* g, int B, int D, int H, int W,
                   int C, int wd, int wh, int ww, int sd, int sh, int sw,

@@ -61,7 +61,7 @@
 // warp and mbarriers per stage of a three-window ring instead of the
 // per-window __syncthreads (the consumer warps free to drift apart): 1.5%.
 // Takes head_dim 16 or 32 and windows of at most 160 tokens. Windows of
-// 161-400 tokens at head_dim 16 or 32 run attn_fwd_big_kernel (below); other
+// 161-448 tokens at head_dim 16 or 32 run attn_fwd_big_kernel (below); other
 // shapes (any head_dim that is a multiple of 16, any N whose tiles fit
 // shared memory) window_attn_kernel of swin_common.cu: launch_attn chooses
 // by shape between the three hand-written kernels.
@@ -391,8 +391,9 @@ int launch_attn_fwd(const bf16* qkv, bf16* ctx, const float* rel_bias,
 }
 
 // ---------------------------------------------------------------------------
-// Windows of 161-400 tokens (16-frame clips: the window (8, 7, 7), N = 392
-// at every stage), head_dim 16 or 32: attn_fwd_big_kernel. See the note at
+// Windows of 161-448 tokens (16-frame clips of Swin-B: the window (8, 7, 7),
+// N = 392 at every stage; 5-frame clips of Swin-L at 384: (3, 12, 12), N =
+// 432), head_dim 16 or 32: attn_fwd_big_kernel. See the note at
 // the top of this file for what it keeps of attn_fwd_kernel; what differs:
 //   - a window's S is 392 x 392: no register array may be sized by N (400
 //     keys would be 200 f32 registers a thread), so the keys stream in
@@ -405,7 +406,8 @@ int launch_attn_fwd(const bf16* qkv, bf16* ctx, const float* rel_bias,
 //     fixed count: the steps are unrolled) stay in registers from the first
 //     pass to the second, which forms S again only for the steps after
 //     them;
-//   - the CTA takes FB_ROWS = 80 query rows of one head (grid: window
+//   - the CTA takes 80 query rows of one head (64 past 400 tokens, below;
+//     grid: window
 //     groups x heads x query blocks) and splits the keys in two halves over
 //     two sets of five warps: ten warps an SM share one copy of the bias
 //     rows, and each warp walks half the keys. The halves meet twice a
@@ -421,6 +423,13 @@ int launch_attn_fwd(const bf16* qkv, bf16* ctx, const float* rel_bias,
 //     cp.async while the first pass runs (k twice, v once: 3 x 25.6 KB), q
 //     of the next window while the second pass runs; ~220 KB in all, one
 //     CTA an SM;
+//   - past 400 padded tokens 80 bias rows no longer fit beside k and v (at
+//     N = 432: 235.6 KB of the 227 KB a CTA may take), so windows of
+//     401-448 tokens take CTAs of FB_WIDE_ROW_WARPS = 4 row warps (64 query
+//     rows, eight warps, 210-218 KB): the same code, instantiated apart, so
+//     that the 80-row CTA of N <= 400 is the one measured before. At N =
+//     432, 7 blocks of 64 rows cover 448 padded rows where 6 of 80 would
+//     cover 480;
 //   - what bounds it: at N = 392 a warp's 16-key step reads 2 KB of shared
 //     memory in the first pass (k and the bias) and 1 KB in the second (v;
 //     2 KB more past the ten kept steps), and issues 17 exponentials a
@@ -433,29 +442,36 @@ int launch_attn_fwd(const bf16* qkv, bf16* ctx, const float* rel_bias,
 //     blocks with the keys in three parts (12 warps an SM), +3.5%; keeping
 //     12 steps' logits, which spills; keeping 6 or 8, +1.6% and +2.2%.
 // ---------------------------------------------------------------------------
-constexpr int FB_ROW_WARPS = 5;                  // 16 query rows each
-constexpr int FB_ROWS = 16 * FB_ROW_WARPS;       // query rows of a CTA
-constexpr int FB_SPLITS = 2;                     // key halves
-constexpr int FB_WARPS = FB_ROW_WARPS * FB_SPLITS;
+constexpr int FB_ROW_WARPS = 5;       // 16 query rows each, up to 400 tokens
+constexpr int FB_WIDE_ROW_WARPS = 4;  // 401-448 tokens
+constexpr int FB_WIDE_NP = 400;       // padded tokens of the 80-row CTA
+constexpr int FB_SPLITS = 2;          // key halves
 constexpr int FB_CACHE = 10;  // 16-key steps whose logits pass 1 keeps
-constexpr int FB_MAX_NP = 400;                   // padded tokens
+constexpr int FB_MAX_NP = 448;        // padded tokens
 
-int big_fwd_blocks(int Np) { return (Np + FB_ROWS - 1) / FB_ROWS; }
-
-size_t big_fwd_smem_bytes(int Np, int hd) {
-  return (size_t)FB_ROWS * Np * sizeof(float) +        // bias rows
-         (size_t)3 * Np * hd * sizeof(bf16) +          // k twice, v
-         (size_t)FB_ROWS * hd * sizeof(bf16) +         // q of the block
-         (size_t)2 * Np * sizeof(int) +                // labels, twice
-         (size_t)FB_SPLITS * FB_ROWS * sizeof(float2) +  // (max, sum)
-         (size_t)FB_ROWS * hd * sizeof(float);         // the upper ctx
+int big_fwd_rows(int Np) {  // query rows of a CTA
+  return 16 * (Np > FB_WIDE_NP ? FB_WIDE_ROW_WARPS : FB_ROW_WARPS);
 }
 
-// grid (groups, heads, big_fwd_blocks(Np)), FB_WARPS warps: warp w takes
-// rows 16 (w % 5) .. + 15 of the block and key half w / 5. Arguments as
-// attn_fwd_kernel's.
-template <int HD>
-__global__ void __launch_bounds__(FB_WARPS * 32, 1)
+int big_fwd_blocks(int Np) {
+  return (Np + big_fwd_rows(Np) - 1) / big_fwd_rows(Np);
+}
+
+size_t big_fwd_smem_bytes(int Np, int hd) {
+  const size_t rows = (size_t)big_fwd_rows(Np);
+  return rows * Np * sizeof(float) +                   // bias rows
+         (size_t)3 * Np * hd * sizeof(bf16) +          // k twice, v
+         rows * hd * sizeof(bf16) +                    // q of the block
+         (size_t)2 * Np * sizeof(int) +                // labels, twice
+         FB_SPLITS * rows * sizeof(float2) +           // (max, sum)
+         rows * hd * sizeof(float);                    // the upper ctx
+}
+
+// grid (groups, heads, big_fwd_blocks(Np)), RW x FB_SPLITS warps: warp w
+// takes rows 16 (w % RW) .. + 15 of the block and key half w / RW.
+// Arguments as attn_fwd_kernel's.
+template <int HD, int RW>
+__global__ void __launch_bounds__(RW * FB_SPLITS * 32, 1)
 attn_fwd_big_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
                     const float* __restrict__ rel_bias,
                     const float* __restrict__ mask,
@@ -467,10 +483,11 @@ attn_fwd_big_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int KS = HD / 16;  // k-steps over the head dim
   constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int FB_ROWS = 16 * RW;  // query rows of the CTA
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rw = warp % FB_ROW_WARPS, sp = warp / FB_ROW_WARPS;
+  const int rw = warp % RW, sp = warp / RW;
   const int grp = blockIdx.x, h = blockIdx.y, row0 = blockIdx.z * FB_ROWS;
   const int nb = Np >> 3;                // key blocks of 8
   const int nk = Np >> 4;                // key steps of 16
@@ -527,7 +544,7 @@ attn_fwd_big_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
   {
     const float* bias_h = rel_bias + (long long)h * N * N;
     float4* bs = reinterpret_cast<float4*>(smem);
-    for (int i = tid; i < FB_ROW_WARPS * nb * 32; i += blockDim.x) {
+    for (int i = tid; i < RW * nb * 32; i += blockDim.x) {
       const int l = i & 31, j = (i >> 5) % nb, w = (i >> 5) / nb;
       const int r = row0 + 16 * w + (l >> 2), c = 8 * j + 2 * (l & 3);
       float v[4];
@@ -806,23 +823,42 @@ attn_fwd_big_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
   }
 }
 
-template <int HD>
+template <int HD, int RW>
 int launch_attn_fwd_big(const bf16* qkv, bf16* ctx, const float* rel_bias,
                         const float* mask, const int* labels,
                         const float* mask_off, int nwin_total, int nwin_clip,
                         int N, int Np, int C, int num_heads, int groups,
                         cudaStream_t stream) {
   const size_t smem = big_fwd_smem_bytes(Np, HD);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > kMaxSmem || 16 * RW != big_fwd_rows(Np))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_big_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_fwd_big_kernel<HD, RW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  attn_fwd_big_kernel<HD>
-      <<<dim3(groups, num_heads, big_fwd_blocks(Np)), FB_WARPS * 32, smem,
-         stream>>>(qkv, ctx, rel_bias, mask, labels, mask_off, nwin_total,
-                   nwin_clip, N, Np, C, groups, 1.f / sqrtf((float)HD));
+  attn_fwd_big_kernel<HD, RW>
+      <<<dim3(groups, num_heads, big_fwd_blocks(Np)), RW * FB_SPLITS * 32,
+         smem, stream>>>(qkv, ctx, rel_bias, mask, labels, mask_off,
+                         nwin_total, nwin_clip, N, Np, C, groups,
+                         1.f / sqrtf((float)HD));
   return (int)cudaGetLastError();
+}
+
+// attn_fwd_big_kernel at head_dim HD, its rows by the window
+template <int HD>
+int launch_attn_fwd_big_rows(const bf16* qkv, bf16* ctx,
+                             const float* rel_bias, const float* mask,
+                             const int* labels, const float* mask_off,
+                             int nwin_total, int nwin_clip, int N, int Np,
+                             int C, int num_heads, int groups,
+                             cudaStream_t stream) {
+  if (Np > FB_WIDE_NP)
+    return launch_attn_fwd_big<HD, FB_WIDE_ROW_WARPS>(
+        qkv, ctx, rel_bias, mask, labels, mask_off, nwin_total, nwin_clip, N,
+        Np, C, num_heads, groups, stream);
+  return launch_attn_fwd_big<HD, FB_ROW_WARPS>(
+      qkv, ctx, rel_bias, mask, labels, mask_off, nwin_total, nwin_clip, N,
+      Np, C, num_heads, groups, stream);
 }
 
 // launches of each CTA that launch_attn chose: attn_fwd_kernel,
@@ -839,8 +875,9 @@ int counted(int rc, int which) {
 
 // The choice by shape between the three hand-written kernels, for head_dim
 // 16 or 32: attn_fwd_kernel for windows of at most 160 tokens (every stage
-// of the Swin tower on 5-frame clips), attn_fwd_big_kernel for 161-400
-// (16-frame clips); window_attn_kernel for the rest. groups: window groups
+// of Swin-B on 5-frame clips), attn_fwd_big_kernel for 161-448 (Swin-B on
+// 16-frame clips, Swin-L at 384 on 5-frame clips); window_attn_kernel for
+// the rest. groups: window groups
 // of the grid (ops/window_attn.attn_fwd_launch_groups). Returns the
 // launch's error code; a launch is counted per kernel.
 int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
@@ -859,13 +896,13 @@ int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
   const int n = (int)nwin_total;
   if (Np > 8 * FW_MAX_NB) {
     if (hd == 16)
-      return counted(launch_attn_fwd_big<16>(qkv, ctx, rel_bias, mask, labels,
-                                             mask_off, n, nwin_clip, N, Np, C,
-                                             num_heads, groups, stream),
+      return counted(launch_attn_fwd_big_rows<16>(
+                         qkv, ctx, rel_bias, mask, labels, mask_off, n,
+                         nwin_clip, N, Np, C, num_heads, groups, stream),
                      1);
-    return counted(launch_attn_fwd_big<32>(qkv, ctx, rel_bias, mask, labels,
-                                           mask_off, n, nwin_clip, N, Np, C,
-                                           num_heads, groups, stream),
+    return counted(launch_attn_fwd_big_rows<32>(
+                       qkv, ctx, rel_bias, mask, labels, mask_off, n,
+                       nwin_clip, N, Np, C, num_heads, groups, stream),
                    1);
   }
   if (hd == 16)

@@ -27,18 +27,21 @@ namespace wmma = nvcuda::wmma;
   } while (0)
 
 // ---------------------------------------------------------------------------
-// (a) LayerNorm over C (C % 8 == 0, C <= 1024), f32 math, bf16 out. kLanes
+// (a) LayerNorm over C (C % 8 == 0, C <= 1536), f32 math, bf16 out. kLanes
 // lanes share a row (16 for C <= 128, two rows a warp; else 32) and each
 // moves 16 bytes at a time: lane l holds the 8-element vectors l, l +
-// kLanes, ... of its row, so a warp instruction reads or writes whole
-// 256- or 512-byte row segments. gather != 0: output row r is window token r
+// kLanes, ... of its row (at most kVecs of them: 4 up to C = 1024, 6 for
+// Video Swin-L's last stage, C = 1536, a separate instance so that the
+// narrower rows keep their code), so a warp instruction reads or writes
+// whole 256- or 512-byte row segments. gather != 0: output row r is window token r
 // (win_row_to_token). Bound by bytes (each row read and written once): LN1 +
 // gather of a stage-0 block at 48 clips (451,584 rows of 128) takes 0.17 ms
 // and LN2 0.11 ms on an NVIDIA H100 80GB HBM3, 700.00 W, against a bound of
 // 0.069 ms; with one warp a row and 2-byte accesses they took 0.45 and 0.31.
 // ---------------------------------------------------------------------------
 constexpr int LN_WARPS = 8;
-constexpr int LN_MAX_VECS = 4;  // 8-element vectors a lane: C <= 1024
+constexpr int LN_MAX_VECS = 4;   // 8-element vectors a lane: C <= 1024
+constexpr int LN_WIDE_VECS = 6;  // C <= 1536
 
 template <int kLanes>
 __device__ __forceinline__ float lanes_sum(float v) {
@@ -48,7 +51,7 @@ __device__ __forceinline__ float lanes_sum(float v) {
   return v;
 }
 
-template <int kLanes>
+template <int kLanes, int kVecs>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -63,10 +66,10 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   const int nv = C >> 3;
   const long long src = !live ? 0 : gather ? win_row_to_token(g, row) : row;
   const bf16* xr = x + src * C;
-  float v[LN_MAX_VECS][8];
+  float v[kVecs][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAX_VECS; ++i) {
+  for (int i = 0; i < kVecs; ++i) {
     const int vec = l + kLanes * i;
     if (live && vec < nv) {
       load8(xr + vec * 8, v[i]);
@@ -77,7 +80,7 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   const float mean = lanes_sum<kLanes>(s) / (float)C;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAX_VECS; ++i) {
+  for (int i = 0; i < kVecs; ++i) {
     if (live && l + kLanes * i < nv) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -89,7 +92,7 @@ ln_rows_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   const float rstd = rsqrtf(lanes_sum<kLanes>(q) / (float)C + eps);
   bf16* orow = out + row * C;
 #pragma unroll
-  for (int i = 0; i < LN_MAX_VECS; ++i) {
+  for (int i = 0; i < kVecs; ++i) {
     const int vec = l + kLanes * i;
     if (live && vec < nv) {
       float gm[8], bt[8];
@@ -190,16 +193,20 @@ double tmap_encode_ns(int n) {
 int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
               long long rows, float eps, const WinGeom& g, int gather,
               cudaStream_t stream) {
-  if (g.C % 8 != 0 || g.C > 8 * 32 * LN_MAX_VECS || rows >= (1LL << 31))
+  if (g.C % 8 != 0 || g.C > 8 * 32 * LN_WIDE_VECS || rows >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((rows + LN_WARPS - 1) / LN_WARPS);
   if (g.C <= 128) {
     const long long per = LN_WARPS * 2;
-    ln_rows_kernel<16><<<(unsigned)((rows + per - 1) / per), LN_WARPS * 32, 0,
-                         stream>>>(x, out, gamma, beta, rows, eps, g, gather);
+    ln_rows_kernel<16, LN_MAX_VECS>
+        <<<(unsigned)((rows + per - 1) / per), LN_WARPS * 32, 0, stream>>>(
+            x, out, gamma, beta, rows, eps, g, gather);
+  } else if (g.C <= 8 * 32 * LN_MAX_VECS) {
+    ln_rows_kernel<32, LN_MAX_VECS><<<blocks, LN_WARPS * 32, 0, stream>>>(
+        x, out, gamma, beta, rows, eps, g, gather);
   } else {
-    ln_rows_kernel<32><<<(unsigned)((rows + LN_WARPS - 1) / LN_WARPS),
-                         LN_WARPS * 32, 0, stream>>>(x, out, gamma, beta, rows,
-                                                     eps, g, gather);
+    ln_rows_kernel<32, LN_WIDE_VECS><<<blocks, LN_WARPS * 32, 0, stream>>>(
+        x, out, gamma, beta, rows, eps, g, gather);
   }
   LRCE_CHECK_LAUNCH();
   return 0;
@@ -209,7 +216,7 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // (b) Window attention for any head_dim that is a multiple of 16 and any
-// window whose tiles fit shared memory (head_dim 16 or 32 with at most 400
+// window whose tiles fit shared memory (head_dim 16 or 32 with at most 448
 // tokens runs attn_fwd_kernel or attn_fwd_big_kernel of attn_fwd.cu
 // instead: launch_attn chooses).
 // qkv: (nwin_total*N, 3C) bf16 in window order, packed

@@ -5,8 +5,9 @@
 //       same gather without the LayerNorm;
 //   (b) window attention: for head_dim 16 or 32 and windows of at most 160
 //       tokens a CTA per (window group, head) on mma.sync with S and P in
-//       registers, for 161-400 tokens a CTA per (window group, head, 80
-//       query rows) that streams the keys (attn_fwd.cu); for other shapes
+//       registers, for 161-448 tokens a CTA per (window group, head, 80
+//       query rows, 64 past 400 tokens) that streams the keys
+//       (attn_fwd.cu); for other shapes
 //       one WMMA CTA per (window, head) (swin_common.cu);
 //   (c) a bf16 tensor-core GEMM (a persistent, warp-specialised CTA: TMA
 //       into a ring of stages, two consumer warpgroups on wgmma in turns,

@@ -197,7 +197,11 @@ def config_from_args(args) -> E2EConfig:
     hooks: the CLIs take a ``model_cfg`` for a small test model in place of
     LRCE_TPU_TINY_MODEL, and the port has no Swin remat, LRCE_TPU_SWIN_REMAT:
     K4 and K5 recompute the attention and the MLP hidden in the backward).
-    Swin-B and BERT-base at the dataset's widths."""
+    BERT-base at the dataset's widths, and the Video Swin tower that the
+    model configuration names by its ``swin`` key (``swin3d.SWIN_CONFIGS``:
+    "base", the default, or "large", Swin-L at 384 x 384, whose
+    configuration also states ``frame_size`` 384, ``video_feature_res``
+    [12, 12] and ``video_feature_dim`` 1536)."""
     return E2EConfig(
         feature_dim=args.feature_dim,
         num_classes=args.num_classes,
@@ -208,4 +212,5 @@ def config_from_args(args) -> E2EConfig:
         temporal_scale=tuple(args.temporal_scale),
         text_seq_len=args.text_seq_len,
         task_type=args.task_type,
+        swin=S.SWIN_CONFIGS[getattr(args, "swin", "base")],
     )

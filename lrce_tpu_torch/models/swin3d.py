@@ -1,5 +1,5 @@
-"""Video Swin Transformer 3D (Swin-B), channels-last, eval and training
-forward.
+"""Video Swin Transformer 3D (Swin-B, and Swin-L at 384 x 384), channels-last,
+eval and training forward.
 
 Counterpart of ``lrce_tpu/models/swin3d.py``: patch embed Conv3d (2,4,4),
 four stages of (W-MSA, SW-MSA) blocks with relative position bias, patch
@@ -15,9 +15,13 @@ Two routes through a stage, chosen by ``SwinTransformer3D.use_kernels``:
     k = 1, the shift inside the kernel); at C > 512 (stage 3) the attention
     runs K2 (``fused_window_attention_hsplit``) and LN2 + MLP + residual
     stay plain, as the JAX package leaves them to XLA, unless ``ln_mlp`` is
-    set: then they run K7 (``fused_ln_mlp``), the JAX package's
-    ``LRCE_TPU_LNMLP`` route as an explicit argument, off by default as
-    there. Stages that need padding take the plain block;
+    set: then they run K7 (``fused_ln_mlp``) where it takes the width
+    (C <= 1024), the JAX package's ``LRCE_TPU_LNMLP`` route as an explicit
+    argument, off by default as there. Stages that need padding, or whose
+    windows or width no kernel takes (``window_kernels_supported``: C <=
+    1536, windows of at most 448 tokens with grad mode on; Swin-L's
+    unclamped (8, 12, 12) window, N = 1152, in either mode), take the plain
+    block;
   - plain: every block is ``swin_block``, the JAX package's XLA path (pad,
     roll, partition, attention, reverse, unroll, crop, MLP).
 On a CPU tensor a kernel wrapper runs its own plain version, so both
@@ -45,10 +49,12 @@ from torch import nn
 
 from lrce_tpu_torch.ops.nn import LayerNorm, Linear, gelu, trunc_normal
 from lrce_tpu_torch.ops.swin_block import (fused_ln_mlp, fused_swin_block,
-                                            fused_swin_pair)
-from lrce_tpu_torch.ops.window_attn import (attn_bwd_supported,
+                                            fused_swin_pair, ln_mlp_supported)
+from lrce_tpu_torch.ops.window_attn import (ATTN_FWD_WIDE_TOKENS,
                                             fused_window_attention_hsplit,
+                                            window_kernels_supported,
                                             window_partition, window_reverse)
+from lrce_tpu_torch.utils import trace
 
 LN_EPS = 1e-5
 # Widest stage whose blocks run K1/K3; wider stages run K2 (the JAX
@@ -68,6 +74,14 @@ class SwinConfig(NamedTuple):
 
 
 SWIN_BASE = SwinConfig()
+# Video Swin-L at 384 x 384 (Kinetics-600, ImageNet-22K pretrained; Liu et
+# al., arXiv:2106.13230, configs/recognition/swin/swin_large_384_patch244_
+# window81212_kinetics600_22k.py): head_dim 32 at every stage, the window
+# (8, 12, 12), clamped to (3, 12, 12) on 5-frame clips (N = 432).
+SWIN_LARGE = SwinConfig(embed_dim=192, num_heads=(6, 12, 24, 48),
+                        window_size=(8, 12, 12))
+# the towers a model configuration names by its ``swin`` key
+SWIN_CONFIGS = {"base": SWIN_BASE, "large": SWIN_LARGE}
 
 
 def get_window_size(x_size: Sequence[int], window_size: Sequence[int],
@@ -328,20 +342,24 @@ class BasicLayer(nn.Module):
         mask = consts.shift_mask(dims, window, shift, x.device) if shifted else None
         aligned = dims == (d, h, w)
         # The route is chosen by shape before any launch, never by catching
-        # a kernel's refusal: the kernels need window-aligned stages, and
-        # with grad mode on the backward needs K4, which takes windows of at
-        # most 400 tokens at head_dim 16 or 32 (16-frame clips give N = 392,
-        # which trains on the kernels; a wider head dim takes the plain
-        # block).
-        kernels = use_kernels and aligned and (
-            not torch.is_grad_enabled()
-            or attn_bwd_supported(n, c // self.num_heads))
+        # a kernel's refusal: the kernels need window-aligned stages, a width
+        # and a window that a forward CTA takes, and with grad mode on K4,
+        # which takes windows of at most 448 tokens at head_dim 16 or 32
+        # (16-frame clips of Swin-B give N = 392 and Swin-L at 384 N = 432,
+        # both of which train on the kernels; a wider head dim, or Swin-L's
+        # unclamped window of 1152 tokens, takes the plain block).
+        kernels = use_kernels and aligned and window_kernels_supported(
+            n, c, self.num_heads, torch.is_grad_enabled())
         nwin = tuple(v // wv for v, wv in zip(dims, window))
         heads = self.num_heads
+        window_heads = b * math.prod(nwin) * heads
         dt = x.dtype
         for j, blk in enumerate(self.blocks):
             s = shift if j % 2 else (0, 0, 0)
             m = mask if j % 2 else None
+            trace.count_detail("attn.window_heads", window_heads)
+            if n > ATTN_FWD_WIDE_TOKENS:
+                trace.count_detail("attn.window_heads_big", window_heads)
             dp1 = dp2 = None
             if dp_rates is not None:
                 dp1, dp2 = (drop_path_multipliers(b, dp_rates[j], generator,
@@ -371,7 +389,7 @@ class BasicLayer(nn.Module):
                 if m is not None:
                     y = torch.roll(y, tuple(s), (1, 2, 3))
                 x = x + drop_path(y, dp1)
-                if ln_mlp:
+                if ln_mlp and ln_mlp_supported(c, blk.mlp.fc1.weight.shape[0]):
                     x = fused_ln_mlp(x, *wts[6:], dp2, LN_EPS)
                 else:
                     x = x + drop_path(blk.mlp(blk.norm2(x)), dp2)
@@ -432,9 +450,10 @@ class SwinTransformer3D(nn.Module):
         depths = self.cfg.depths
         rates = np.linspace(0, self.cfg.drop_path_rate, sum(depths)).tolist()
         offset = 0
-        for layer, depth in zip(self.layers, depths):
-            x = layer(x, self.use_kernels, self.consts,
-                      rates[offset:offset + depth] if training else None,
-                      generator, self.ln_mlp)
+        for i, (layer, depth) in enumerate(zip(self.layers, depths)):
+            with trace.span(f"swin.s{i}"):
+                x = layer(x, self.use_kernels, self.consts,
+                          rates[offset:offset + depth] if training else None,
+                          generator, self.ln_mlp)
             offset += depth
         return self.norm(x)

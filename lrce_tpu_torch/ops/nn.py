@@ -56,10 +56,40 @@ def erf_rational(x: torch.Tensor) -> torch.Tensor:
     return (x * p / q).clamp(-1.0, 1.0)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU, computed in f32."""
+def _gelu_f32(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+class _GeluSavingInput(torch.autograd.Function):
+    """``gelu`` of a bf16 x that needs a gradient: the same forward, but the
+    backward keeps x itself (2 bytes an element) where autograd through the
+    f32 ops keeps three f32 intermediates (12 bytes), and computes
+    g (Phi(x) + x phi(x)) in f32, rounded once to x's dtype. The plain MLP
+    of Video Swin-L's stages 2-3 (FF = 3072 / 6144 over 1,728 / 432 tokens
+    a clip) kept most of a training step's activations in them."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_f32(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        xf = x.float()
+        cdf = 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))
+        pdf = torch.exp(-0.5 * xf * xf) / math.sqrt(2.0 * math.pi)
+        return (g.float() * (cdf + xf * pdf)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, computed in f32; a narrower x that needs a gradient
+    saves only itself for the backward (``_GeluSavingInput``)."""
+    if (x.dtype != torch.float32 and torch.is_grad_enabled()
+            and x.requires_grad):
+        return _GeluSavingInput.apply(x)
+    return _gelu_f32(x)
 
 
 class _MatmulF32(torch.autograd.Function):

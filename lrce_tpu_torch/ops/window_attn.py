@@ -16,9 +16,10 @@ window-attention pieces the Swin kernels share.
   block input and returns the LN1-output cotangent dy and the gradients of
   qkv_w, qkv_b, proj_w and rel_bias (``csrc/attn_bwd.cu``). The head chunks
   exist on the TPU only to fit VMEM and do not come across. Windows of up to
-  160 tokens take one CTA per (window group, head); windows of 161-400
-  tokens (the 16-frame window (8, 7, 7), N = 392) a rows / columns pair of
-  CTAs per (window group, head, 80-row block).
+  160 tokens take one CTA per (window group, head); windows of 161-448
+  tokens (Swin-B's 16-frame window (8, 7, 7), N = 392; Swin-L's (3, 12, 12)
+  at 5 frames, N = 432) a rows / columns pair of CTAs per (window group,
+  head, 80-row block).
 
 - ``window_attention_core`` is the attention CTA that K6, K2, K1 and K3
   share (``csrc/attn_fwd.cu``), on its own: packed qkv, rel_bias and mask in,
@@ -234,9 +235,22 @@ def check_kernel_args(name: str, x: torch.Tensor, window: Window,
     if d % window[0] or h % window[1] or w % window[2]:
         raise ValueError(f"{name}: (D, H, W) = {(d, h, w)} is not a multiple "
                          f"of the window {window}")
-    if c % num_heads or (c // num_heads) % 16 or c % 32 or c > 1024:
+    if not kernel_width_supported(c, num_heads):
         raise ValueError(f"{name}: C = {c} with {num_heads} heads; the kernel "
-                         "takes C % 32 == 0, C <= 1024, head_dim % 16 == 0")
+                         f"takes C % 32 == 0, C <= {KERNEL_MAX_C}, "
+                         "head_dim % 16 == 0")
+
+
+KERNEL_MAX_C = 1536     # the LayerNorm CTA's widest row (csrc/swin_common.cu)
+
+
+def kernel_width_supported(c: int, num_heads: int) -> bool:
+    """Whether the Swin kernels take C channels in ``num_heads`` heads:
+    C a multiple of 32 up to 1536 (Video Swin-L's last stage), head_dim a
+    multiple of 16. ``check_kernel_args`` and the Swin stage's choice of
+    route read this one rule."""
+    return (c % num_heads == 0 and (c // num_heads) % 16 == 0
+            and c % 32 == 0 and c <= KERNEL_MAX_C)
 
 
 def expect_shape(name: str, t: Optional[torch.Tensor], shape) -> None:
@@ -337,19 +351,27 @@ def attn_fwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
 
 
 ATTN_FWD_SMALL_TOKENS = 160  # attn_fwd_kernel: twenty 8-key blocks at most
-ATTN_FWD_MAX_TOKENS = 400    # attn_fwd_big_kernel
+ATTN_FWD_MAX_TOKENS = 448    # attn_fwd_big_kernel
 ATTN_FWD_BLOCK_ROWS = 80     # query rows of one attn_fwd_big_kernel CTA
+ATTN_FWD_WIDE_TOKENS = 400   # past it, CTAs of ATTN_FWD_WIDE_BLOCK_ROWS rows
+ATTN_FWD_WIDE_BLOCK_ROWS = 64
 ATTN_FWD_KEY_SPLITS = 2      # its warp sets, one per half of the keys
 ATTN_FWD_CTAS = ("attn_fwd_kernel", "attn_fwd_big_kernel",
                  "window_attn_kernel")
+SMEM_PER_CTA = 227 * 1024    # dynamic shared memory a CTA may take (kMaxSmem)
+
+
+def _padded(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def attn_fwd_cta(n: int, head_dim: int) -> str:
     """The CTA that ``launch_attn`` (``csrc/attn_fwd.cu``) gives windows of
     n tokens at this head_dim: ``attn_fwd_kernel`` for head_dim 16 / 32 and
-    n <= 160 (padded to 16), ``attn_fwd_big_kernel`` for 161-400, the WMMA
-    ``window_attn_kernel`` for the rest."""
-    padded = -(-n // 16) * 16
+    n <= 160 (padded to 16), ``attn_fwd_big_kernel`` for 161-448, the WMMA
+    ``window_attn_kernel`` for the rest (head_dim 48, 64, ...; more than 448
+    tokens)."""
+    padded = _padded(n)
     if head_dim not in (16, 32) or padded > ATTN_FWD_MAX_TOKENS:
         return "window_attn_kernel"
     if padded <= ATTN_FWD_SMALL_TOKENS:
@@ -357,19 +379,46 @@ def attn_fwd_cta(n: int, head_dim: int) -> str:
     return "attn_fwd_big_kernel"
 
 
+def wmma_attn_smem_bytes(n: int, head_dim: int) -> int:
+    """Shared memory of the WMMA CTA with one warp (``attn_smem_bytes`` in
+    ``csrc/swin_common.cu``): q, k, v of the window and one warp's 16 rows
+    of f32 S and bf16 P."""
+    npad = _padded(n)
+    return 3 * npad * head_dim * 2 + 16 * npad * (4 + 2)
+
+
+def attn_fwd_supported(n: int, head_dim: int) -> bool:
+    """Whether some forward attention CTA takes windows of n tokens at
+    this head_dim: the two ``mma.sync`` CTAs, or the WMMA CTA where its
+    tiles fit shared memory. Video Swin's unclamped (8, 12, 12) window (N =
+    1152, 16 frames or more at 384) does not: its stages take the plain
+    block."""
+    if head_dim % 16:
+        return False
+    return (attn_fwd_cta(n, head_dim) != "window_attn_kernel"
+            or wmma_attn_smem_bytes(n, head_dim) <= SMEM_PER_CTA)
+
+
+def attn_fwd_block_rows(n: int) -> int:
+    """Query rows of one ``attn_fwd_big_kernel`` CTA (``big_fwd_rows``):
+    80 up to 400 padded tokens, 64 beyond, where 80 bias rows do not fit."""
+    return (ATTN_FWD_BLOCK_ROWS if _padded(n) <= ATTN_FWD_WIDE_TOKENS
+            else ATTN_FWD_WIDE_BLOCK_ROWS)
+
+
 def attn_fwd_blocks(n: int) -> int:
-    """Query blocks of ``attn_fwd_big_kernel``'s grid: 80-row blocks of the
-    window padded to 16 rows."""
-    return -(-(-(-n // 16) * 16) // ATTN_FWD_BLOCK_ROWS)
+    """Query blocks of ``attn_fwd_big_kernel``'s grid: blocks of
+    ``attn_fwd_block_rows`` rows of the window padded to 16 rows."""
+    return -(-_padded(n) // attn_fwd_block_rows(n))
 
 
 def attn_fwd_big_smem_bytes(n: int, head_dim: int) -> int:
     """Shared memory of one ``attn_fwd_big_kernel`` CTA (``big_fwd_smem_
-    bytes`` in ``csrc/attn_fwd.cu``): its 80 bias rows in f32, k twice and
-    v once, q of its rows, the labels twice, the two halves' (max, sum) and
+    bytes`` in ``csrc/attn_fwd.cu``): its bias rows in f32, k twice and v
+    once, q of its rows, the labels twice, the two halves' (max, sum) and
     the upper half's f32 ctx."""
-    npad = -(-n // 16) * 16
-    rows = ATTN_FWD_BLOCK_ROWS
+    npad = _padded(n)
+    rows = attn_fwd_block_rows(n)
     return (rows * npad * 4 + 3 * npad * head_dim * 2 + rows * head_dim * 2
             + 2 * npad * 4 + ATTN_FWD_KEY_SPLITS * rows * 8
             + rows * head_dim * 4)
@@ -443,7 +492,7 @@ def window_attention_core(qkv: torch.Tensor, rel_bias: torch.Tensor,
     qkv: (windows, N, 3C); rel_bias: (nH, N, N) f32; mask: (..., N, N) f32,
     one per window of a clip (windows a multiple of their count), or None.
     Returns ctx (windows, N, C). On CUDA: qkv bf16, everything contiguous,
-    head_dim a multiple of 16; head_dim 16 or 32 with N <= 400 runs an
+    head_dim a multiple of 16; head_dim 16 or 32 with N <= 448 runs an
     ``mma.sync`` CTA of ``csrc/attn_fwd.cu`` (``attn_fwd_kernel`` up to 160
     tokens, ``attn_fwd_big_kernel`` beyond), other shapes the WMMA CTA of
     ``csrc/swin_common.cu`` (``attn_fwd_cta``)."""
@@ -529,7 +578,7 @@ def sm_count(x: torch.Tensor) -> int:
 
 
 ATTN_BWD_SMALL_TOKENS = 160  # attn_bwd_kernel: ten 16-row key blocks at most
-ATTN_BWD_MAX_TOKENS = 400    # the rows / columns pair: 25 blocks of 16
+ATTN_BWD_MAX_TOKENS = 448    # the rows / columns pair: 28 blocks of 16
 ATTN_BWD_BLOCK_ROWS = 80     # query rows / keys of one of the pair's CTAs
 ATTN_BWD_PAIR_CTAS = 16      # the pair's CTAs an SM over a call, about
 
@@ -537,9 +586,24 @@ ATTN_BWD_PAIR_CTAS = 16      # the pair's CTAs an SM over a call, about
 def attn_bwd_supported(n: int, head_dim: int) -> bool:
     """Whether K4 (``window_attention_bwd`` on CUDA) takes windows of n
     tokens at this head_dim: attn_bwd_kernel takes up to 160 (padded to 16),
-    the rows / columns pair up to 400. Its wrapper and the Swin stage's
+    the rows / columns pair up to 448. Its wrapper and the Swin stage's
     choice of route read this one rule."""
     return n <= ATTN_BWD_MAX_TOKENS and head_dim in (16, 32)
+
+
+def window_kernels_supported(n: int, c: int, num_heads: int,
+                             grad: bool) -> bool:
+    """Whether a window-aligned Swin stage of windows of n tokens, C
+    channels and ``num_heads`` heads runs on the kernels: its width
+    (``kernel_width_supported``), a forward CTA for its windows
+    (``attn_fwd_supported``) and, with ``grad``, K4
+    (``attn_bwd_supported``). The route is chosen by this rule before any
+    launch, so that no stage reaches a kernel that refuses it."""
+    if not kernel_width_supported(c, num_heads):
+        return False
+    hd = c // num_heads
+    return attn_fwd_supported(n, hd) and (not grad
+                                          or attn_bwd_supported(n, hd))
 
 
 def attn_bwd_blocks(n: int) -> int:

@@ -48,7 +48,7 @@ KINDS = (   # first match wins, on the kernel's name; the names of earlier
     ("hand-written GEMM", ("gemm_wgmma", "gemm_bf16_kernel")),
     ("K1 / K3 back half (proj, LN2, fc1, GELU, fc2)", ("back_half_kernel",)),
     ("window attention forward CTA (N <= 160)", ("attn_fwd_kernel",)),
-    ("window attention forward CTA (N = 161-400)", ("attn_fwd_big_kernel",)),
+    ("window attention forward CTA (N = 161-448)", ("attn_fwd_big_kernel",)),
     ("window attention forward, WMMA CTA", ("window_attn_kernel",)),
     ("LN / gather / row-scale / partial sums (kernels)",
      ("ln_rows", "gather_rows", "scale_rows", "sum_parts")),

@@ -9,7 +9,12 @@
     trace.host_ms(spans, "fusion")      # median host ms a unit
 
 Tracing is off by default, and then ``span`` returns one shared null
-context and ``count`` does nothing. While it is on, each span records
+context and ``count`` does nothing. ``count_detail`` counts work by shape
+(``attn.window_heads``: the window x head pairs of the Swin tower's forward
+attention) only where the reader asks for it, ``enable(detail=True)``: the
+counters of a plain ``enable()`` stay the per-unit ones (``steps``,
+``questions``, ``clips``, ``h2d_bytes``) that readers hold to their inputs.
+While tracing is on, each span records
 ``(name, start_ns, end_ns, parent, step)``: its host interval on
 ``time.time_ns()``, the clock the profiler stamps its events with; the
 index of the span that was open around it on the same thread (-1 for
@@ -48,6 +53,7 @@ class Span(NamedTuple):
 class _State:
     def __init__(self):
         self.on = False
+        self.detail = False
         self.spans: List = []
         self.counters: Dict[str, int] = defaultdict(int)
         self.units = 0
@@ -111,12 +117,22 @@ def count(name: str, n: int = 1) -> None:
         _STATE.counters[name] += n
 
 
-def enable() -> None:
+def count_detail(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on with
+    ``detail``."""
+    if _STATE.on and _STATE.detail:
+        _STATE.counters[name] += n
+
+
+def enable(detail: bool = False) -> None:
+    """Start recording; ``detail``: ``count_detail``'s counters too."""
     _STATE.on = True
+    _STATE.detail = detail
 
 
 def disable() -> None:
     _STATE.on = False
+    _STATE.detail = False
 
 
 def enabled() -> bool:

@@ -300,20 +300,26 @@ def test_attn_fwd_groups_values(nwin, heads, sms, want):
     (147, 32, "attn_fwd_kernel"), (160, 16, "attn_fwd_kernel"),
     (8, 16, "attn_fwd_kernel"), (161, 32, "attn_fwd_big_kernel"),
     (200, 16, "attn_fwd_big_kernel"), (392, 32, "attn_fwd_big_kernel"),
-    (400, 32, "attn_fwd_big_kernel"), (401, 32, "window_attn_kernel"),
+    (400, 32, "attn_fwd_big_kernel"), (401, 32, "attn_fwd_big_kernel"),
+    (432, 32, "attn_fwd_big_kernel"), (448, 16, "attn_fwd_big_kernel"),
+    (449, 32, "window_attn_kernel"), (1152, 32, "window_attn_kernel"),
     (147, 64, "window_attn_kernel"), (392, 48, "window_attn_kernel")])
 def test_attn_fwd_cta_by_shape(n, hd, cta):
     assert WA.attn_fwd_cta(n, hd) == cta
 
 
 @pytest.mark.parametrize("n,blocks", [(161, 3), (176, 3), (200, 3),
-                                      (245, 4), (392, 5), (400, 5)])
+                                      (245, 4), (392, 5), (400, 5),
+                                      (401, 7), (432, 7), (448, 7)])
 def test_attn_fwd_blocks(n, blocks):
-    """80-row query blocks of the window padded to 16 rows; the last one
-    ragged except at N = 392 / 400."""
+    """80-row query blocks of the window padded to 16 rows up to 400 padded
+    tokens, 64-row blocks past it; the last one ragged except at N = 392 /
+    400 / 448."""
+    rows = 80 if n <= 400 else 64
+    assert WA.attn_fwd_block_rows(n) == rows
     assert WA.attn_fwd_blocks(n) == blocks
-    assert (blocks - 1) * WA.ATTN_FWD_BLOCK_ROWS < -(-n // 16) * 16
-    assert -(-n // 16) * 16 <= blocks * WA.ATTN_FWD_BLOCK_ROWS
+    assert (blocks - 1) * rows < -(-n // 16) * 16
+    assert -(-n // 16) * 16 <= blocks * rows
 
 
 def test_attn_fwd_big_smem_fits_an_sm_at_np400():
@@ -328,6 +334,19 @@ def test_attn_fwd_big_smem_fits_an_sm_at_np400():
     assert WA.attn_fwd_big_smem_bytes(400, 32) <= 227 * 1024
 
 
+@pytest.mark.parametrize("n,hd,want", [(432, 32, 210304), (448, 32, 217600),
+                                      (432, 16, 162688)])
+def test_attn_fwd_big_smem_fits_an_sm_past_np400(n, hd, want):
+    """Past 400 padded tokens the CTA takes 64 rows: at N = 432 and
+    head_dim 32, 64 bias rows of 432 f32 (110,592 B), k twice and v
+    (82,944), q (4,096), the labels twice (3,456), (max, sum) (1,024) and
+    the upper ctx (8,192). 80 rows would take 241,280 B, past the 232,448
+    a CTA may take."""
+    assert WA.attn_fwd_big_smem_bytes(n, hd) == want <= WA.SMEM_PER_CTA
+    assert 80 * 432 * 4 + 3 * 432 * 64 + 80 * 64 + 2 * 432 * 4 + 2 * 80 * 8 \
+        + 80 * 128 > WA.SMEM_PER_CTA
+
+
 def test_attn_fwd_big_constants_match_the_source():
     """The Python helpers' rows, key parts and token limits are the ones
     ``csrc/attn_fwd.cu`` launches with."""
@@ -340,6 +359,8 @@ def test_attn_fwd_big_constants_match_the_source():
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
     assert 16 * const("FB_ROW_WARPS") == WA.ATTN_FWD_BLOCK_ROWS
+    assert 16 * const("FB_WIDE_ROW_WARPS") == WA.ATTN_FWD_WIDE_BLOCK_ROWS
+    assert const("FB_WIDE_NP") == WA.ATTN_FWD_WIDE_TOKENS
     assert const("FB_SPLITS") == WA.ATTN_FWD_KEY_SPLITS
     assert const("FB_MAX_NP") == WA.ATTN_FWD_MAX_TOKENS
     assert 8 * const("FW_MAX_NB") == WA.ATTN_FWD_SMALL_TOKENS

@@ -181,7 +181,9 @@ def test_back_half_refuses_other_devices():
 
 @pytest.mark.parametrize("n,hd,ok", [(147, 32, True), (160, 16, True),
                                      (392, 32, True), (147, 64, False),
-                                     (161, 32, True)])
+                                     (161, 32, True), (432, 32, True),
+                                     (448, 16, True), (449, 32, False),
+                                     (1152, 32, False)])
 def test_attn_bwd_supported(n, hd, ok):
     assert WA.attn_bwd_supported(n, hd) is ok
 

@@ -5,9 +5,11 @@ K8 at C = 128, 256 and 512 likewise; the
 shared wgmma GEMMs on their own at ragged shapes; K4 and K5 at the
 flagship's stage 0 and stage 3 widths and twice over for bit-identity, K4's
 rows / columns pair at the 16-frame window (N = 392) at all four stages and
-at N = 161, 196, 200, 245 and 400; the
+at N = 161, 196, 200, 245 and 400, and at Swin-L's (3, 12, 12) window (N =
+432: stage 0 shifted, stage 3 at C = 1536 and 48 heads) and N = 416 / 448;
+K2 at C = 1536; a Swin-L-shaped train step against the plain route; the
 attention-forward CTAs on their own: attn_fwd_kernel at the flagship's
-window and at the edges of its range, attn_fwd_big_kernel at N = 161-400
+window and at the edges of its range, attn_fwd_big_kernel at N = 161-448
 (head_dim 16 / 32, masked by labels, densely and not, ragged blocks), each
 call's CTA named by the library's launch counts, and the WMMA CTA for a
 head_dim of 48 or 64), the
@@ -523,7 +525,7 @@ def test_k4_at_flagship_widths_twice(dev, dims, heads, shift):
         assert torch.equal(a, b)    # fixed-order sums: bit-identical
 
 
-# K4's rows / columns pair (windows of 161-400 tokens): the flagship's four
+# K4's rows / columns pair (windows of 161-448 tokens): the flagship's four
 # stages at 16 frames (window (8, 7, 7), N = 392; stages 0-2 shifted by
 # (0, 3, 3), stage 3 unshifted), and windows whose padded size is no
 # multiple of the pair's 80-row blocks: N = 196 (8 frames) at head_dim 16,
@@ -540,6 +542,15 @@ K4_PAIR_SHAPES = {
     "n161-hd16": ((2, 1, 14, 46, 64), 4, (1, 7, 23), (0, 3, 11)),
     "n200-hd32": ((2, 8, 10, 10, 128), 4, (8, 5, 5), (0, 2, 2)),
     "n400-hd32": ((1, 16, 10, 10, 64), 2, (16, 5, 5), (0, 2, 2)),
+    # Video Swin-L at 384 on 5-frame clips: the window (3, 12, 12), N = 432
+    # (six 80-row blocks, the last with 32 rows), stage 0 shifted by (0, 6,
+    # 6) at its width, stage 3 unshifted at C = 1536 and 48 heads; N = 416
+    # at head_dim 16; N = 448, whose columns CTA takes the drel slice
+    # without its padding
+    "swinl-stage0": ((1, 3, 24, 24, 192), 6, (3, 12, 12), (0, 6, 6)),
+    "swinl-stage3": ((3, 3, 12, 12, 1536), 48, (3, 12, 12), (0, 0, 0)),
+    "n416-hd16": ((2, 4, 8, 26, 64), 4, (4, 8, 13), (0, 4, 6)),
+    "n448-hd32": ((1, 7, 8, 16, 64), 2, (7, 8, 8), (0, 4, 4)),
 }
 
 
@@ -659,7 +670,7 @@ def test_attn_core_beyond_the_new_kernels_range(dev, n, hd, heads, masked):
     _close(got, WA.window_attention_core_plain(*case))
 
 
-# attn_fwd_big_kernel (windows of 161-400 tokens) at the edges of its range:
+# attn_fwd_big_kernel (windows of 161-448 tokens) at the edges of its range:
 # (clips, windows per clip, N, head_dim, heads). N = 161 and 200 leave the
 # last 80-row query block and the last 16-key step ragged; 392 is the
 # 16-frame window (8, 7, 7), 400 the full range; stage 0's 4 heads with more
@@ -671,7 +682,12 @@ BIG_CORE_SHAPES = {"n161-hd16": (2, 2, 161, 16, 2),
                    "n392-hd16": (2, 2, 392, 16, 2),
                    "n392-hd32": (3, 4, 392, 32, 4),
                    "n400-hd16": (1, 2, 400, 16, 2),
-                   "n400-hd32": (2, 2, 400, 32, 2)}
+                   "n400-hd32": (2, 2, 400, 32, 2),
+                   # 64-row query blocks past 400 tokens: Swin-L's N = 432
+                   # (7 blocks, the last with 48 rows), 416, 448
+                   "n432-hd32": (3, 4, 432, 32, 6),
+                   "n416-hd16": (2, 2, 416, 16, 2),
+                   "n448-hd32": (2, 2, 448, 32, 2)}
 
 
 @pytest.mark.parametrize("mask_kind", [None, "labels", "dense", "mixed"],
@@ -863,6 +879,80 @@ def test_train_step_at_n392_matches_the_plain_route(dev):
     # the forward attention of each block, and K6's recompute of it in the
     # backward: attn_fwd_big_kernel at N = 392 (stages 0-2), attn_fwd_kernel
     # at N = 128 (stage 3), never the WMMA CTA
+    assert ctas == {"attn_fwd_kernel": 4, "attn_fwd_big_kernel": 12,
+                    "window_attn_kernel": 0}
+    lp, gp = run(False)
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() <= 1e-1
+
+
+def test_k2_at_swin_l_stage3(dev):
+    """K2 at Video Swin-L's last stage: C = 1536 (LN1 over 1536 columns),
+    48 heads of 32, one (3, 12, 12) window a clip, no shift; one launch of
+    attn_fwd_big_kernel a call."""
+    rng = np.random.default_rng(37)
+    c, heads, window = 1536, 48, (3, 12, 12)
+    case = _k4_case(rng, dev, (3, 3, 12, 12, c), heads, window, SHIFT0)
+    x, _, ln_s, ln_b, qkv_w, qkv_b, proj_w, rel, mask = case[:9]
+    proj_b = torch.tensor(0.02 * rng.normal(size=c), dtype=torch.float32,
+                          device=dev)
+    args = (x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, rel, mask, window,
+            heads, 1e-5)
+    before = WA.fused_window_attention_hsplit.launches
+    with torch.no_grad():
+        got, launched = _cta_launches(
+            lambda: WA.fused_window_attention_hsplit(*args))
+    assert WA.fused_window_attention_hsplit.launches == before + 1
+    _only(launched, "attn_fwd_big_kernel")
+    _close(got, WA.window_attention_plain(*args))
+
+
+def test_train_step_at_n432_matches_the_plain_route(dev):
+    """Video Swin-L's stages at 5 frames of 192 x 192 (widths cut to C = 64
+    / 128 / 256 / 512 with head_dim 32, the (8, 12, 12) window): stages 0-1
+    at (3, 48, 48) and (3, 24, 24) in (3, 12, 12) windows of N = 432,
+    shifted (0, 6, 6) in their second block, K1 + K3; stage 2 one such
+    window a clip, unshifted, two K1; stage 3 (3, 6, 6), N = 108, two K1.
+    Every block's K4 takes the window (the rows / columns pair at N = 432);
+    no forward call takes the WMMA CTA. Loss and per-stage gradients within
+    chip_smoke's route-parity limits (1e-2, 1e-1)."""
+    from lrce_tpu_torch.models import swin3d as PS
+
+    cfg = PS.SwinConfig(embed_dim=64, depths=(2, 2, 2, 2),
+                        num_heads=(2, 4, 8, 16), window_size=(8, 12, 12),
+                        drop_path_rate=0.0)
+    model = PS.SwinTransformer3D(cfg, dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    x = torch.randn((2, 5, 192, 192, 3),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    x = x.bfloat16()
+    proj = None
+
+    def run(use_kernels):
+        nonlocal proj
+        model.use_kernels = use_kernels
+        model.zero_grad(set_to_none=True)
+        out = model(x).float()
+        if proj is None:
+            proj = torch.randn(out.shape, generator=torch.Generator()
+                               .manual_seed(2)).to(dev)
+        loss = (out * proj).mean() + out.square().mean()
+        loss.backward()
+        grads = [torch.cat([p.grad.float().reshape(-1)
+                            for p in layer.parameters()])
+                 for layer in model.layers]
+        return loss.item(), grads
+
+    before = WA.window_attention_bwd.launches
+    WA.attn_fwd_cta_launches(reset=True)
+    lk, gk = run(True)
+    ctas = WA.attn_fwd_cta_launches(reset=True)
+    assert WA.window_attention_bwd.launches - before == 8
+    # each block's forward attention and K6's recompute of it: N = 432 at
+    # stages 0-2, N = 108 at stage 3
     assert ctas == {"attn_fwd_kernel": 4, "attn_fwd_big_kernel": 12,
                     "window_attn_kernel": 0}
     lp, gp = run(False)

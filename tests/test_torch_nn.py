@@ -27,6 +27,30 @@ def test_gelu_is_exact_erf():
                                np.asarray(JN.gelu(jnp.asarray(x))), **TOL)
 
 
+def test_gelu_of_bf16_saves_only_its_input():
+    """A bf16 GELU with a gradient keeps its bf16 input for the backward
+    (not the f32 intermediates autograd would keep) and gives the forward
+    and the gradient of the f32 ops' autograd: the same f32 math, in
+    another order, rounded once to bf16 (at most one bf16 ulp apart)."""
+    gen = torch.Generator().manual_seed(0)
+    x = (3 * torch.randn((64, 96), generator=gen)).bfloat16()
+    g = torch.randn((64, 96), generator=gen).bfloat16()
+    saved = []
+    a = x.clone().requires_grad_()
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        y = PN.gelu(a)
+    assert [(t.dtype, t.shape) for t in saved] == [(torch.bfloat16, x.shape)]
+    y.backward(g)
+    b = x.clone().requires_grad_()
+    xf = b.float()
+    want = (xf * 0.5 * (1.0 + torch.erf(xf / np.sqrt(2.0)))).to(b.dtype)
+    want.backward(g)
+    assert torch.equal(y, want)
+    ulp = 2.0 ** -7 * b.grad.float().abs().clamp_min(2.0 ** -126)
+    assert bool(((a.grad.float() - b.grad.float()).abs() <= ulp).all())
+
+
 @pytest.mark.parametrize("bias", [True, False])
 def test_dense(bias):
     rng = np.random.default_rng(1)

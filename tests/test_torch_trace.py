@@ -21,7 +21,8 @@ B = 2   # questions of the tiny batch
 FUSION = ("fusion", [("fusion.embed", []), ("fusion.clip", []),
                      ("fusion.clip", []), ("fusion.clip", []),
                      ("fusion.head", [])])
-FORWARD = ("forward", [("swin", []), ("bert", []), FUSION])
+SWIN = ("swin", [("swin.s0", []), ("swin.s1", [])])
+FORWARD = ("forward", [SWIN, ("bert", []), FUSION])
 TRAIN_TREE = ("step", [("h2d", []), ("optimizer", []), FORWARD, ("loss", []),
                        ("backward", []), ("optimizer", []), ("metrics", [])])
 EVAL_TREE = ("step", [("h2d", []), FORWARD, ("loss", []), ("metrics", [])])
@@ -141,7 +142,7 @@ def test_spans_lie_within_a_millisecond_of_their_profiler_ranges():
                      e.name()[len(trace.PREFIX):])
                     for e in prof.profiler.kineto_results.events()
                     if e.name().startswith(trace.PREFIX))
-    assert len(ranges) == len(spans) == 16
+    assert len(ranges) == len(spans) == 18
     ms = 1_000_000
     for s, (start, end, name) in zip(sorted(spans, key=lambda s: s.start_ns),
                                      ranges):
@@ -174,6 +175,24 @@ def test_a_request_records_forward_over_swin_bert_and_fusion():
     spans, counters = trace.drain()
     assert tree(spans) == [FORWARD]
     assert counters == {"questions": B, "clips": 3 * B}
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_work_counters_only_where_asked(detail):
+    """``enable(detail=True)`` adds the window x head pairs of every Swin
+    block's forward attention: stage 0, 8 windows a clip (a (3, 8, 8) map
+    padded to (4, 8, 8) in (2, 4, 4) windows) x 1 head, stage 1 2 windows
+    x 2 heads, two blocks each, over 6 clips; no window has more than 400
+    tokens. A plain ``enable()`` counts what it counted before."""
+    model = tiny_model()
+    x = [torch.from_numpy(a) for a in tiny_batch()[:4]]
+    trace.enable(detail=detail)
+    PE.e2e_forward(model, *x)
+    _, counters = trace.drain()
+    want = {"questions": B, "clips": 3 * B}
+    if detail:
+        want["attn.window_heads"] = 3 * B * (2 * 8 * 1 + 2 * 2 * 2)
+    assert counters == want
 
 
 def test_tracing_changes_no_number():
