@@ -87,11 +87,9 @@ Phases, each raising on failure (the script then exits non-zero):
      bf16 answers 3 requests of 2 questions x 3 clips x 5 x 224 x 224 uint8
      frames with 32 tokens. Logits must be finite, (2, 1000), agree with
      the same model run on the plain route, and each request must launch
-     K1 11 times, K3 11 times, K2 twice and the back half 4 times (K1 and
-     K3 at stages 0-1). Then the same requests with the
-     stage-3 MLP routed through K7 (``ln_mlp=True``): K7 twice per request,
-     logits within the same limit of the plain route, the request time with
-     the route on and off taken in turns. Then K8 through its own entry
+     K1 11 times, K3 11 times, K2 twice, K7 twice (stage 3's LN2 + MLP)
+     and the back half 4 times (K1 and K3 at stages 0-1). Then K8 through
+     its own entry
      point, ``fused_mlp``, on each request's patch-embedded clips with the
      first block's weights, against the model's own LN2 + MLP + residual;
   5. train: the flagship with f32 parameters and bf16 compute, AgentOE with
@@ -99,10 +97,10 @@ Phases, each raising on failure (the script then exits non-zero):
      dropout 0.1 and drop-path 0.2 from a seeded generator, takes a warm-up
      step and 2 steps at 16 questions x 3 clips (48 clips) of uint8 frames.
      Every step: a finite loss, parameters of all three groups changed, and
-     the launches K1 11, K3 11, K2 2 (forward), K6 22, K5 22, K4 24
+     the launches K1 11, K3 11, K2 2, K7 2 (forward), K6 22, K5 24, K4 24
      (backward), and attn_fwd_kernel 46 times. Prints the step ms and the
      peak device memory;
-  6. training run: the same flagship with ``ln_mlp=True`` through the entry
+  6. training run: the same flagship through the entry
      a user of the trainer calls: an in-memory dataset made from a seed (64
      train and 16 validation items of 3 x 5 x 224 x 224 x 3 uint8 clips, 32
      token ids, a label), ``DataLoader`` -> ``device_prefetch`` ->
@@ -115,8 +113,8 @@ Phases, each raising on failure (the script then exits non-zero):
      ``best.pt`` reproduces, through ``do_evaluation``, the validation loss
      and metric recorded when it was saved (1e-6 relative);
   7. route parity: one forward + backward at 2 questions, dropout and
-     drop-path off, the same weights and batch, on the kernel route (with
-     ``ln_mlp=True``: K7 and its backward at stage 3) and on the plain
+     drop-path off, the same weights and batch, on the kernel route (K7
+     and its backward K5 at stage 3) and on the plain
      route: loss and per-group gradient relative L2 (each Swin
      stage, BERT, the fusion) against the stated limit;
   7b. frames16: the flagship at 16 frames (``frame_sample_size`` 16, the
@@ -124,7 +122,7 @@ Phases, each raising on failure (the script then exits non-zero):
      clips the kernel route against the plain route (loss, per-group
      gradients, a request's logits, the limits of 7 and 4), then a warm-up
      and 2 AgentOE steps at 16 questions x 3 clips on the kernel route, each
-     launching K1 11, K3 11, K2 2, K6 22, K5 22, K4 24 and attn_fwd_big_kernel
+     launching K1 11, K3 11, K2 2, K7 2, K6 22, K5 24, K4 24 and attn_fwd_big_kernel
      46 times (window_attn_kernel never); step ms, peak and the card on one
      ``[frames16]`` line;
   8. cli: the file-based path through the command lines a user runs. A
@@ -142,9 +140,10 @@ Phases, each raising on failure (the script then exits non-zero):
      the tgif-frameqa configuration at full width (batch 8: 4 train steps
      and 2 validation steps, async checkpoints): finite losses, every
      group's parameters moved, ``config.json`` and ``best.pt`` written,
-     K1 11, K3 11, K2 2, K6 22, K5 22, K4 24 launches on every train step;
-     and ``lrce_tpu_torch.cli.eval.main`` on that ``best.pt`` over the test
-     split: a finite loss and accuracy, K1 11, K3 11, K2 2 a step. One
+     K1 11, K3 11, K2 2, K7 2, K6 22, K5 24, K4 24 launches on every train
+     step; and ``lrce_tpu_torch.cli.eval.main`` on that ``best.pt`` over the
+     test split: a finite loss and accuracy, K1 11, K3 11, K2 2, K7 2 a
+     step. One
      ``[cli]`` line gives both walls, the train steps' device ms, the
      loader-wait share of each step, the peak device memory and the card;
   9. ddp: training across ranks. ``cli.train_ddp.main`` (the legacy
@@ -266,19 +265,17 @@ WINDOW16 = (8, 7, 7)
 N392_PLAIN_CLIPS = (12, 24, 48, 48)
 FRAMES16_BATCH = 16         # questions of the 16-frame train steps
 FRAMES16_STEPS = 2
+# stage 3 (C = 1024) runs K2, then its LN2 + MLP through K7
 CALLS_PER_FORWARD = {"K1": (1, 1, 9, 0), "K3": (1, 1, 9, 0),
-                     "K2": (0, 0, 0, 2),
+                     "K2": (0, 0, 0, 2), "K7": (0, 0, 0, 2),
                      # K1 / K3's one-launch back half, at stages 0-1
                      "back_half": (2, 2, 0, 0)}
-# backward of one train step: K6 and K5 once per K1/K3 block, K4 once per
-# block of every stage (K2's backward included); K6 and K4 run half their
-# calls with the mask (the shifted blocks)
-CALLS_PER_BACKWARD = {"K6": (2, 2, 18, 0), "K5": (2, 2, 18, 0),
+# backward of one train step: K6 once per K1/K3 block, K5 once per block
+# (K7's backward included), K4 once per block of every stage (K2's backward
+# included); K6 and K4 run half their calls with the mask (the shifted
+# blocks)
+CALLS_PER_BACKWARD = {"K6": (2, 2, 18, 0), "K5": (2, 2, 18, 2),
                       "K4": (2, 2, 18, 2)}
-# with the stage-3 MLP routed through K7 (ln_mlp=True): K7 once per stage-3
-# block forward, and K5 is its backward too
-LN_MLP_FORWARD = {**CALLS_PER_FORWARD, "K7": (0, 0, 0, 2)}
-LN_MLP_BACKWARD = {**CALLS_PER_BACKWARD, "K5": (2, 2, 18, 2)}
 TRAIN_BATCH = 16                # questions per step (tools/train_bench.py)
 TRAIN_CLIPS = TRAIN_BATCH * 3   # the Swin batch of a train step
 TRAIN_STEPS = 2
@@ -1100,7 +1097,7 @@ def phase_kernels():
                         with torch.no_grad():
                             return SB.fused_ln_mlp(*k7)
 
-                    record("K7", LN_MLP_FORWARD["K7"][stage]
+                    record("K7", CALLS_PER_FORWARD["K7"][stage]
                            if with_dp == train_shape else 0,
                            label + (" dp2" if with_dp else " no dp2"), run_k7,
                            lambda: SB.ln_mlp_plain(*k7),
@@ -1112,7 +1109,7 @@ def phase_kernels():
                 _matmul_yardstick(f"K7 {label}", x.numel() // c, c, 4 * c,
                                   gen)
                 k5 = (x, g, *mlp[:5], dp, 1e-5)
-                record("K5", LN_MLP_BACKWARD["K5"][stage],
+                record("K5", CALLS_PER_BACKWARD["K5"][stage],
                        label + " dp2", lambda: SB.mlp_bwd(*k5),
                        lambda: SB.mlp_bwd_plain(*k5),
                        _work("K5", clips, stage, with_dp=True), timed=True)
@@ -1546,15 +1543,19 @@ def phase_swinl():
     every stage (``_attn_core_big``, ``_k4_pair``), K2 at stages 2-3 (C =
     768 masked and not; C = 1536 with 48 heads, whose LN1 spans 1536
     columns) held to its plain version chunk by chunk and timed beside its
-    bound, its forward CTA counted; LN1 + gather at C = 1536 alone; and a
-    Swin-L stage of each route through ``BasicLayer`` with grad mode on and
-    off, its launches counted (K4's pair and attn_fwd_big_kernel, never the
-    WMMA CTA or the plain block). Returns {"core": {clips: sums}, "K4":
-    {clips: sums}, "K2": sums at a step's clips}."""
+    bound, its forward CTA counted; LN1 + gather at C = 1536 alone; the
+    stage 2-3 LN2 + MLP (``_swinl_mlp``: K7 at C = 768, K5 at C = 768 and
+    1536); and a Swin-L stage of each route through ``BasicLayer`` with
+    grad mode on and off, its launches and the tracer's counters counted
+    (K4's pair and attn_fwd_big_kernel, never the WMMA CTA or the plain
+    block; K7 / K5 for LN2 + MLP at C > 512). Returns {"core": {clips:
+    sums}, "K4": {clips: sums}, "K2" / "K7" / "K5": sums at a step's
+    clips}."""
     from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
                                               SwinConfig, compute_shift_mask)
     from lrce_tpu_torch.ops import gemm as G
     from lrce_tpu_torch.ops import window_attn as WA
+    from lrce_tpu_torch.utils import trace
 
     geo, gen = N432, torch.Generator().manual_seed(432)
     n = math.prod(geo.window)
@@ -1634,31 +1635,43 @@ def phase_swinl():
           f"{clips}-clip step: kernel {k2['ms']:.4f} ms, plain "
           f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms",
           flush=True)
+    mlp = _swinl_mlp(gen, dgen, geo, clips)
 
     # a stage of each route at Swin-L's widths, two clips: K1 / K3 with K6,
     # K5 and K4 (C = 192), K2 and K4 (C = 768 shifted, C = 1536 unshifted)
+    # with LN2 + MLP through fused_ln_mlp: K7 and K5 at C = 768, the plain
+    # forward and K5 at C = 1536; the tracer counts the blocks of each
     cfg = SwinConfig(window_size=(8, 12, 12))
-    for c, heads, (d, h, w), want in (
+    for c, heads, (d, h, w), want, k7 in (
             (192, 6, (3, 24, 24), {"K1": 1, "K3": 1, "K6": 2, "K5": 2,
-                                   "K4": 2, "K2": 0}),
-            (768, 24, (3, 24, 24), {"K2": 2, "K4": 2, "K1": 0, "K3": 0}),
-            (1536, 48, (3, 12, 12), {"K2": 2, "K4": 2, "K1": 0, "K3": 0})):
+                                   "K4": 2, "K2": 0, "K7": 0}, 0),
+            (768, 24, (3, 24, 24), {"K2": 2, "K4": 2, "K7": 2, "K5": 2,
+                                    "K1": 0, "K3": 0, "K6": 0}, 2),
+            (1536, 48, (3, 12, 12), {"K2": 2, "K4": 2, "K7": 0, "K5": 2,
+                                     "K1": 0, "K3": 0, "K6": 0}, 0)):
         layer = BasicLayer(c, 2, heads, cfg, False, torch.bfloat16,
                            torch.Generator().manual_seed(c)).cuda()
         x = _device_seeded((2, d, h, w, c), dgen)
         xs = x.detach().requires_grad_()
         _reset_counts()
         WA.attn_fwd_cta_launches(reset=True)
-        layer(xs, True, DeviceConstants()).float().sum().backward()
+        trace.drain()
+        trace.enable(detail=True)
+        try:
+            layer(xs, True, DeviceConstants()).float().sum().backward()
+        finally:
+            trace.disable()
         with_grad, ctas = _counts(), WA.attn_fwd_cta_launches(reset=True)
+        counters = trace.drain()[1]
         _reset_counts()
         with torch.no_grad():
             layer(x, True, DeviceConstants())
         without = _counts()
         fwd = sum(want[k] for k in ("K1", "K3", "K2")) + want.get("K6", 0)
+        wide = 2 if c > 512 else 0
         print(f"[route] Swin-L C {c}, {heads} heads, map {(d, h, w)}: with "
-              f"grad {with_grad}, forward CTAs {ctas}; without grad "
-              f"{without}", flush=True)
+              f"grad {with_grad}, forward CTAs {ctas}, counters {counters}; "
+              f"without grad {without}", flush=True)
         require(all(with_grad[k] == v for k, v in want.items())
                 and ctas == _only_cta("attn_fwd_big_kernel", fwd)
                 and xs.grad is not None
@@ -1666,13 +1679,98 @@ def phase_swinl():
                 f"a Swin-L stage at C = {c} launched {with_grad} and the "
                 f"forward CTAs {ctas}, expected {want} and "
                 f"attn_fwd_big_kernel {fwd} times")
-        require(all(without[k] == want[k] for k in ("K1", "K3", "K2")),
+        require(counters.get("swin.wide_mlp_fused", 0) == wide
+                and counters.get("swin.wide_mlp_k7", 0) == k7,
+                f"a Swin-L stage at C = {c} counted {counters}, expected "
+                f"{wide} fused LN2 + MLP blocks, {k7} of them on K7")
+        require(all(without[k] == want[k] for k in ("K1", "K3", "K2", "K7"))
+                and without["K5"] == 0,
                 f"a Swin-L stage at C = {c} without grad launched {without}")
         del layer, x, xs
-    worst = max(worst, k2["max_abs_err"])
+    worst = max(worst, k2["max_abs_err"], mlp.pop("max_abs_err"))
     print(f"[swinl] N = {n}, largest |kernel - plain| {worst:.4g}",
           flush=True)
-    return {"core": core, "K4": k4, "K2": k2}
+    return {"core": core, "K4": k4, "K2": k2, **mlp}
+
+
+def _swinl_mlp(gen, dgen, geo: Geometry, clips: int) -> dict:
+    """LN2 + MLP + residual of Swin-L's K2-route blocks at a step's
+    ``clips``, through ``fused_ln_mlp`` as the route runs them: K7 at
+    stage 2 (C = 768, T = 103,680 rows at 60 clips), the plain forward at
+    stage 3 (C = 1536, wider than K7 takes; no launch, bit-equal to
+    ``ln_mlp_plain``), K5 the backward of both. Each against its plain
+    version and timed beside its bound, summed over a step's calls (18
+    blocks at stage 2, 2 at stage 3). Returns {"K7" / "K5": sums,
+    "max_abs_err"}."""
+    from lrce_tpu_torch.ops import swin_block as SB
+
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+           for k in ("K7", "K5")}
+    worst = 0.0
+    for stage in (2, 3):
+        d, h, w, c, heads = geo.stages[stage]
+        calls = K2_CALLS_SWINL[stage]
+        x = _device_seeded((clips, d, h, w, c), dgen)
+        g = _device_seeded((clips, d, h, w, c), dgen)
+        p = _block_weights(c, heads, 1, gen, None)
+        mlp = [p[k] for k in MLP_KEYS]
+        dp = (torch.rand((clips,), generator=gen) < 0.8).float().cuda() / 0.8
+        label = f"stage {stage} {tuple(x.shape)}, FF {4 * c}, dp2"
+
+        k7_args, k5_args = (x, *mlp, dp, 1e-5), (x, g, *mlp[:5], dp, 1e-5)
+
+        def k7():
+            with torch.no_grad():
+                return SB.fused_ln_mlp(*k7_args)
+
+        def plain7():
+            return SB.ln_mlp_plain(*k7_args)
+
+        cases = [("K5", lambda: SB.mlp_bwd(*k5_args),
+                  lambda: SB.mlp_bwd_plain(*k5_args))]
+        _reset_counts()
+        got = k7()
+        launched = _counts()["K7"]
+        if SB.ln_mlp_supported(c, 4 * c):
+            require(launched == 1, f"K7 {label}: {launched} launches")
+            cases.insert(0, ("K7", k7, plain7))
+        else:
+            require(launched == 0 and torch.equal(got, plain7()),
+                    f"fused_ln_mlp {label}: {launched} K7 launches, or its "
+                    "plain forward differs from ln_mlp_plain")
+            print(f"[swinl] fused_ln_mlp {label}: the plain forward, no "
+                  f"launch, {_cuda_time_ms(k7, 3):.4f} ms a call",
+                  flush=True)
+        del got
+        for kernel, run_k, run_p in cases:
+            got, want = run_k(), run_p()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            for i, (a, b) in enumerate(zip(got, want)):
+                worst = max(worst, _compare(f"{kernel} {label} out{i}", a, b))
+            del got, want
+            p1, t1, t2, p2 = (_cuda_time_ms(f, i) for f, i in (
+                (run_p, 1), (run_k, 5), (run_k, 5), (run_p, 1)))
+            work = _work(kernel, clips, stage, with_dp=True,
+                         stages=geo.stages, window=geo.window)
+            bound, by = _bound_ms(work)
+            tk, tp = (t1 + t2) / 2, (p1 + p2) / 2
+            for key, v in (("ms", tk), ("plain_ms", tp), ("bound_ms", bound)):
+                out[kernel][key] += calls * v
+            print(f"[swinl] {kernel} {label}: kernel {tk:.4f} ms, plain "
+                  f"{tp:.4f} ms, bound {bound:.4f} ms ({by}: "
+                  f"{work[0] / 1e9:.3f} GFLOP, {work[1] / 1e6:.3f} MB) per "
+                  f"call, {100 * bound / tk:.1f}% of it; {calls} call(s) a "
+                  "step", flush=True)
+        del x, g, p, mlp, k7_args, k5_args, cases
+        torch.cuda.empty_cache()
+    for kernel, r in out.items():
+        print(f"[swinl] {kernel}, the LN2 + MLP calls of one {clips}-clip "
+              f"step at stages 2-3: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
+              flush=True)
+    out["max_abs_err"] = worst
+    return out
 
 
 def _grads(fn, x, leaves, g):
@@ -1831,7 +1929,7 @@ def phase_forward():
     for k, n in launches.items():
         require(n == per_forward[k] * len(requests),
                 f"{k} launched {n} times, expected {per_forward[k]} per request")
-    require(all(counts[k] == 0 for k in ("K7", "K8", "K6", "K5", "K4")),
+    require(all(counts[k] == 0 for k in ("K8", "K6", "K5", "K4")),
             "the eval forward launched a kernel that is not on its route")
 
     swin = model.video_extractor.swin
@@ -1846,33 +1944,7 @@ def phase_forward():
                            f"{i}")
 
     check(outs, "kernel route")
-
-    # the stage-3 MLP through K7, and its request time against the stock
-    # route's in turns: on (counted), off, off, on
-    swin.use_kernels, swin.ln_mlp = True, True
-    e2e_forward(model, *requests[0])
-    torch.cuda.synchronize()
-    _reset_counts()
-    outs7, lat_on = serve("kernel route + K7")
-    counts7 = _counts()
-    per_forward7 = {k: sum(v) for k, v in LN_MLP_FORWARD.items()}
-    print(f"[forward] launches over {len(requests)} requests with ln_mlp: "
-          f"{counts7}")
-    for k, n in counts7.items():
-        want = per_forward7.get(k, 0) * len(requests)
-        require(n == want, f"{k} launched {n} times with ln_mlp, expected "
-                f"{want}")
-    check(outs7, "kernel route + K7")
-    launches["K7"] = counts7["K7"]
-    swin.ln_mlp = False
-    lat_off = serve("kernel route, stock stage-3 MLP")[1]
-    lat_off += serve("kernel route, stock stage-3 MLP")[1]
-    swin.ln_mlp = True
-    lat_on = lat_on + serve("kernel route + K7")[1]
-    print(f"[forward] request ms, stage-3 MLP through K7 {np.mean(lat_on):.2f}"
-          f" (median {np.median(lat_on):.2f}), stock "
-          f"{np.mean(lat_off):.2f} (median {np.median(lat_off):.2f}), "
-          f"{len(lat_on)} requests each, in turns", flush=True)
+    swin.use_kernels = True
 
     # K8 through its own entry point: LN2 + MLP + residual of the first
     # block on each request's patch-embedded clips, the model's weights
@@ -1899,7 +1971,7 @@ def phase_forward():
             f"K8 launched {launches['K8']} times, expected one per request")
     del model
     torch.cuda.empty_cache()
-    return launches, lat_kernels, lat_plain, lat_on, lat_off
+    return launches, lat_kernels, lat_plain
 
 
 def _train_batch(rng, questions: int, frames: int = 5):
@@ -1913,15 +1985,13 @@ def _train_batch(rng, questions: int, frames: int = 5):
     return clips, ids, mask, types, gt
 
 
-def _flagship_train_model(ln_mlp: bool = False, seed: int = 0,
-                          frames: int = 5):
+def _flagship_train_model(seed: int = 0, frames: int = 5):
     from lrce_tpu_torch.models.e2e import E2EConfig, LRCEModel
 
     cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32,
                     frame_sample_size=frames)
     return LRCEModel(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(seed),
-                     ln_mlp=ln_mlp)
+                     generator=torch.Generator().manual_seed(seed))
 
 
 def _probes(model) -> dict:
@@ -1955,7 +2025,7 @@ def _counted_step(agent, batch, per_step: dict, probes: dict):
 
 
 def _train_per_step() -> dict:
-    """Launches of one train step on the kernel route (``ln_mlp`` off)."""
+    """Launches of one train step on the kernel route."""
     return {"K7": 0, "K8": 0,
             **{k: sum(v) for k, v in {**CALLS_PER_FORWARD,
                                       **CALLS_PER_BACKWARD}.items()}}
@@ -2028,15 +2098,14 @@ class _SyntheticQA:
 
 def phase_training_run():
     """One epoch through DataLoader -> device_prefetch -> do_training, the
-    stage-3 MLP through K7, checkpoints from the writer thread; then
+    checkpoints from the writer thread; then
     ``best.pt`` reloaded into a fresh model must reproduce its validation."""
     from lrce_tpu_torch.data.loader import DataLoader
     from lrce_tpu_torch.train.agent import AgentOE, default_args
 
-    train_step = {"K8": 0, **{k: sum(v) for k, v in {
-        **LN_MLP_FORWARD, **LN_MLP_BACKWARD}.items()}}
+    train_step = _train_per_step()
     eval_step = {**{k: 0 for k in train_step},
-                 **{k: sum(v) for k, v in LN_MLP_FORWARD.items()}}
+                 **{k: sum(v) for k, v in CALLS_PER_FORWARD.items()}}
     train_dl = DataLoader(_SyntheticQA(RUN_TRAIN_ITEMS, 21), TRAIN_BATCH,
                           shuffle=True, seed=0, num_workers=2)
     val_dl = DataLoader(_SyntheticQA(RUN_VAL_ITEMS, 22), TRAIN_BATCH,
@@ -2045,11 +2114,11 @@ def phase_training_run():
     require(n_steps == 4 and len(val_dl) == 1, "the run is 4 steps + 1 val")
 
     with tempfile.TemporaryDirectory(prefix="lrce_smoke_") as log_dir:
-        model = _flagship_train_model(ln_mlp=True)
+        model = _flagship_train_model()
         args = default_args(epoch=1, ckpt_interval=1, log_dir=log_dir,
                             async_checkpoint=True)
         agent = AgentOE(model, args, seed=0)
-        print(f"[run] flagship, ln_mlp=True, f32 parameters, bf16 compute; "
+        print(f"[run] flagship, f32 parameters, bf16 compute; "
               f"{RUN_TRAIN_ITEMS} train / {RUN_VAL_ITEMS} validation items, "
               f"batch {TRAIN_BATCH}, lr {agent.lrs}, async_checkpoint "
               f"{args.async_checkpoint}, TensorBoard "
@@ -2148,7 +2217,7 @@ def phase_training_run():
         recorded = [v for v in validations if v[3]][-1]
         del agent, model
         torch.cuda.empty_cache()
-        fresh = AgentOE(_flagship_train_model(ln_mlp=True, seed=5),
+        fresh = AgentOE(_flagship_train_model(seed=5),
                         default_args(), log_enabled=False, is_eval=True)
         fresh.load_checkpoint(os.path.join(args.ckpt_dir, "best.pt"))
         fresh.do_evaluation(val_dl)
@@ -2218,10 +2287,10 @@ def _route_parity(model, batch, tag: str) -> float:
 
 
 def phase_route_parity():
-    """One forward + backward, kernel route (the stage-3 MLP through K7,
-    ``ln_mlp=True``) vs plain route, dropout and drop-path off
-    (training=False, grad enabled), the task loss's gradients per group."""
-    model = _flagship_train_model(ln_mlp=True)
+    """One forward + backward, kernel route (the stage-3 MLP through K7)
+    vs plain route, dropout and drop-path off (training=False, grad
+    enabled), the task loss's gradients per group."""
+    model = _flagship_train_model()
     batch = [torch.from_numpy(a).cuda()
              for a in _train_batch(np.random.default_rng(11), 2)]
     worst = _route_parity(model, batch, "[parity]")
@@ -3064,8 +3133,8 @@ def phase_tools(card: str):
     width on the card (Swin-B, BERT-base, 12 fusion layers, oe, 1000
     classes), with iteration counts cut to fit the phase: preflight (the
     96-clip bench forward and a batch-16 train step), profile --latency
-    (batch 1, 3 clips, 20 requests), stage_bench (48 clips, four stages,
-    K7 on stage 3), train_bench (batch 16, K7, four regimes), e2e_eval_bench
+    (batch 1, 3 clips, 20 requests), stage_bench (48 clips, four stages),
+    train_bench (batch 16, four regimes), e2e_eval_bench
     (64 questions, batch 32, 2 workers), sanity_curve (500 samples, 2
     epochs), parity_eval on the sanity run's weights (batch 32),
     extract_features video and text on 4 GIFs, flops (3
@@ -3081,7 +3150,7 @@ def phase_tools(card: str):
                                       train_bench)
     from lrce_tpu_torch.utils.checkpoint import save_checkpoint
 
-    forward_kernels = ("K1", "K3", "K2")
+    forward_kernels = ("K1", "K3", "K2", "K7")
     train_kernels = forward_kernels + ("K6", "K5", "K4")
     walls, report = {}, {}
     report["forward96"] = _tools_forward(preflight.BENCH_BATCH)
@@ -3116,17 +3185,15 @@ def phase_tools(card: str):
 
     _reset_counts()
     stages, _ = _tool("stage_bench", lambda: stage_bench.main(
-        ["--clips", "48", "--iters", str(TOOLS_STAGE_ITERS), "--ln-mlp"]),
-        walls)
-    _launched("stage_bench", forward_kernels + ("K7",))
+        ["--clips", "48", "--iters", str(TOOLS_STAGE_ITERS)]), walls)
+    _launched("stage_bench", forward_kernels)
     report["stage_ms"] = [(r["stage"], round(r["kernel_ms"], 3),
                            round(r["plain_ms"], 3)) for r in stages]
 
     _reset_counts()
     tb, _ = _tool("train_bench", lambda: train_bench.main(
-        ["--batch", "16", "--iters", str(TOOLS_TRAIN_ITERS), "--ln-mlp"]),
-        walls)
-    _launched("train_bench", train_kernels + ("K7",))
+        ["--batch", "16", "--iters", str(TOOLS_TRAIN_ITERS)]), walls)
+    _launched("train_bench", train_kernels)
     require(math.isfinite(tb["loss"]), f"train_bench: loss {tb['loss']}")
     report["train_bench"] = {
         k: round(tb[k], 2) for k in tb if k.endswith(("_ms", "_clips_s"))}
@@ -3266,7 +3333,7 @@ def main() -> int:
     swinl = phase_swinl()
     phase_by_piece(gemms, attn_rows, ln_ms, call_ms, back_half_ms)
     phase_function_grads()
-    fwd_launches, lat_k, lat_p, lat_on, lat_off = phase_forward()
+    fwd_launches, lat_k, lat_p = phase_forward()
     train_launches, step_ms, peak = phase_train()
     run_launches, run_step_ms, run_wall, run_peak = phase_training_run()
     worst = phase_route_parity()
@@ -3298,7 +3365,7 @@ def main() -> int:
     # point, the backward kernels from the training run; every kernel of
     # the run's path must have launched there
     for k in ("K1", "K3", "K2", "K7", "K6", "K5", "K4"):
-        require(run_launches[k] > 0 and (k == "K7" or train_launches[k] > 0),
+        require(run_launches[k] > 0 and train_launches[k] > 0,
                 f"{k} never launched on the training path")
     launches = {**fwd_launches,
                 **{k: run_launches[k] for k in ("K6", "K5", "K4")}}
@@ -3327,10 +3394,10 @@ def main() -> int:
         elif k in n392["forward"]:
             # the 48-clip sums at the 16-frame window, N = 392
             kernels[-1]["clips48_n392"] = n392["forward"][k]
-        if k == "K2":
+        if k in ("K2", "K7", "K5"):
             # Swin-L's stages 2-3 (C = 768, 1536) at a step of its cell
             kernels[-1][f"clips{SWINL_CLIPS}_n432"] = {
-                x: swinl["K2"][x] for x in ("ms", "plain_ms", "bound_ms")}
+                x: swinl[k][x] for x in ("ms", "plain_ms", "bound_ms")}
         if k == "K6":
             # the attention-forward CTA that K1 / K3 / K2 / K6 share at the
             # 16-frame window (attn_fwd_big_kernel), alone: the 46 calls of
@@ -3347,8 +3414,8 @@ def main() -> int:
                     x: swinl["core"][clips][x]
                     for x in ("ms", "plain_ms", "bound_ms", "library_ms")}
     print(f"[summary] {card}; build {lib.build_seconds:.1f} s; request "
-          f"latency ms kernel route {lat_k}, plain route {lat_p}, with K7 "
-          f"{lat_on}, stock stage-3 MLP {lat_off}; train step ms {step_ms} at "
+          f"latency ms kernel route {lat_k}, plain route {lat_p}; train "
+          f"step ms {step_ms} at "
           f"{TRAIN_CLIPS} clips, peak {peak:.2f} GiB; training run "
           f"{run_wall:.2f} s, step ms {run_step_ms}, peak {run_peak:.2f} GiB; "
           f"route parity worst gradient rel L2 {worst:.4g}; 16 frames: "
@@ -3365,7 +3432,10 @@ def main() -> int:
           f"{swinl['core'][SWINL_CLIPS]['ms']:.2f} ms (bound "
           f"{swinl['core'][SWINL_CLIPS]['bound_ms']:.2f}), K2 "
           f"{swinl['K2']['ms']:.2f} ms (bound "
-          f"{swinl['K2']['bound_ms']:.2f}); bench "
+          f"{swinl['K2']['bound_ms']:.2f}), K7 {swinl['K7']['ms']:.2f} ms "
+          f"(bound {swinl['K7']['bound_ms']:.2f}), K5 "
+          f"{swinl['K5']['ms']:.2f} ms (bound "
+          f"{swinl['K5']['bound_ms']:.2f}); bench "
           f"{tools['bench']['value']} clips/s; CLIs: train "
           f"{cli['train_s']:.2f} s, eval {cli['eval_s']:.2f} s, step ms "
           f"{[round(t, 1) for t in cli['step_ms']]}, loader-wait share "

@@ -62,10 +62,9 @@ class TextExtractor(nn.Module):
 
 
 class VideoExtractor(nn.Module):
-    def __init__(self, cfg: S.SwinConfig, dtype, generator, ln_mlp):
+    def __init__(self, cfg: S.SwinConfig, dtype, generator):
         super().__init__()
-        self.swin = S.SwinTransformer3D(cfg, dtype=dtype, generator=generator,
-                                        ln_mlp=ln_mlp)
+        self.swin = S.SwinTransformer3D(cfg, dtype=dtype, generator=generator)
 
 
 class LRCEModel(nn.Module):
@@ -74,13 +73,11 @@ class LRCEModel(nn.Module):
     in ``dtype`` and the activations computed in ``compute_dtype`` (default:
     ``dtype``); LayerNorm parameters, biases, embeddings and position
     tables stay f32. Random weights come from ``generator``, or from a
-    generator seeded with 0. ``ln_mlp``: the Swin tower's stage-3 LN2 + MLP
-    through K7 (``SwinTransformer3D``)."""
+    generator seeded with 0."""
 
     def __init__(self, cfg: E2EConfig, *, device=DEFAULT_DEVICE,
                  dtype=torch.float32, compute_dtype=None,
-                 generator: Optional[torch.Generator] = None,
-                 ln_mlp: bool = False):
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -94,8 +91,7 @@ class LRCEModel(nn.Module):
             dtype, generator, cfg.drop_out_rate)
         self.text_extractor = TextExtractor(cfg.bert, dtype, generator,
                                             self.dtype)
-        self.video_extractor = VideoExtractor(cfg.swin, dtype, generator,
-                                              ln_mlp)
+        self.video_extractor = VideoExtractor(cfg.swin, dtype, generator)
         self.to(device)
 
     def forward(self, video_clips, texts, texts_attention_mask,

@@ -12,12 +12,13 @@ Two routes through a stage, chosen by ``SwinTransformer3D.use_kernels``:
   - kernels (the default), where the JAX package routes Pallas kernels:
     on window-aligned stages with C <= 512, unshifted blocks run K1
     (``fused_swin_block``) and shifted blocks K3 (``fused_swin_pair`` with
-    k = 1, the shift inside the kernel); at C > 512 (stage 3) the attention
-    runs K2 (``fused_window_attention_hsplit``) and LN2 + MLP + residual
-    stay plain, as the JAX package leaves them to XLA, unless ``ln_mlp`` is
-    set: then they run K7 (``fused_ln_mlp``) where it takes the width
-    (C <= 1024), the JAX package's ``LRCE_TPU_LNMLP`` route as an explicit
-    argument, off by default as there. Stages that need padding, or whose
+    k = 1, the shift inside the kernel); at C > 512 (Swin-B's stage 3,
+    Swin-L's stages 2-3) the attention runs K2
+    (``fused_window_attention_hsplit``) and LN2 + MLP + residual run
+    ``fused_ln_mlp``, the JAX package's ``LRCE_TPU_LNMLP`` route: its
+    forward is K7 where K7 takes the width (``ln_mlp_supported``: C <=
+    1024), else the plain version at K7's rounding points, and its
+    backward K5 at every width. Stages that need padding, or whose
     windows or width no kernel takes (``window_kernels_supported``: C <=
     1536, windows of at most 448 tokens with grad mode on; Swin-L's
     unclamped (8, 12, 12) window, N = 1152, in either mode), take the plain
@@ -328,10 +329,8 @@ class BasicLayer(nn.Module):
     def forward(self, x: torch.Tensor, use_kernels: bool,
                 consts: "DeviceConstants",
                 dp_rates: Optional[Sequence[float]] = None,
-                generator: Optional[torch.Generator] = None,
-                ln_mlp: bool = False) -> torch.Tensor:
-        """dp_rates: the blocks' drop-path rates in training, else None;
-        ln_mlp: at C > ``BLOCK_KERNEL_MAX_C`` run LN2 + MLP through K7."""
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """dp_rates: the blocks' drop-path rates in training, else None."""
         b, d, h, w, c = x.shape
         window, shift = get_window_size(
             (d, h, w), self.window_size, tuple(s // 2 for s in self.window_size))
@@ -350,6 +349,9 @@ class BasicLayer(nn.Module):
         # unclamped window of 1152 tokens, takes the plain block).
         kernels = use_kernels and aligned and window_kernels_supported(
             n, c, self.num_heads, torch.is_grad_enabled())
+        # blocks wider than BLOCK_KERNEL_MAX_C run K2, then LN2 + MLP
+        # through ``fused_ln_mlp``: K7 forward where K7 takes the width
+        k7 = ln_mlp_supported(c, self.blocks[0].mlp.fc1.weight.shape[0])
         nwin = tuple(v // wv for v, wv in zip(dims, window))
         heads = self.num_heads
         window_heads = b * math.prod(nwin) * heads
@@ -382,17 +384,16 @@ class BasicLayer(nn.Module):
                                     *stk[6:], one(dp1), one(dp2), window,
                                     heads, (s,), LN_EPS)
             else:
-                # the JAX package rolls around K2 and leaves LN2 + MLP to XLA
+                # the JAX package's LRCE_TPU_LNMLP route: rolls around K2
                 y = torch.roll(x, tuple(-v for v in s), (1, 2, 3)) if m is not None else x
                 y = fused_window_attention_hsplit(y, *wts[:6], rel_bias, mask5,
                                                   window, heads, LN_EPS)
                 if m is not None:
                     y = torch.roll(y, tuple(s), (1, 2, 3))
-                x = x + drop_path(y, dp1)
-                if ln_mlp and ln_mlp_supported(c, blk.mlp.fc1.weight.shape[0]):
-                    x = fused_ln_mlp(x, *wts[6:], dp2, LN_EPS)
-                else:
-                    x = x + drop_path(blk.mlp(blk.norm2(x)), dp2)
+                x = fused_ln_mlp(x + drop_path(y, dp1), *wts[6:], dp2, LN_EPS)
+                trace.count_detail("swin.wide_mlp_fused")
+                if k7:
+                    trace.count_detail("swin.wide_mlp_k7")
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -424,15 +425,11 @@ class SwinTransformer3D(nn.Module):
     """(B, D, H, W, 3) channels-last video -> (B, D', H/32, W/32, 8*embed_dim)."""
 
     def __init__(self, cfg: SwinConfig = SWIN_BASE, *, dtype=torch.float32,
-                 generator: torch.Generator, use_kernels: bool = True,
-                 ln_mlp: bool = False):
-        """use_kernels: the kernel route; ln_mlp: on the kernel route, the
-        stage-3 LN2 + MLP + residual through K7 (``fused_ln_mlp``) instead
-        of the plain ops."""
+                 generator: torch.Generator, use_kernels: bool = True):
+        """use_kernels: the kernel route."""
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
-        self.ln_mlp = ln_mlp
         self.consts = DeviceConstants()
         n_stages = len(cfg.depths)
         self.patch_embed = PatchEmbed3D(cfg, dtype, generator)
@@ -454,6 +451,6 @@ class SwinTransformer3D(nn.Module):
             with trace.span(f"swin.s{i}"):
                 x = layer(x, self.use_kernels, self.consts,
                           rates[offset:offset + depth] if training else None,
-                          generator, self.ln_mlp)
+                          generator)
             offset += depth
         return self.norm(x)

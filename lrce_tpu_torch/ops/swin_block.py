@@ -18,10 +18,14 @@ LN2-output cotangent and the MLP's weight gradients.
 
 ``fused_ln_mlp`` (K7) replaces ``_ln_mlp_kernel`` / ``_ln_mlp_fwd_impl``
 (``csrc/ln_mlp.cu``): LN2 + MLP + residual as one persistent launch at any
-C <= 1024 (``ln_mlp_supported``), the stage-3 route of the Swin tower (C =
-1024), its work list from ``ln_mlp_plan``; its backward is K5 and the LN2
-input backward, as ``_ln_mlp_bwd``. ``ops/mlp.py`` (K8) runs the same
-kernel without dp2 at the widths its own does not take.
+C <= 1024 (``ln_mlp_supported``), its work list from ``ln_mlp_plan``; its
+backward is K5 and the LN2 input backward, as ``_ln_mlp_bwd``. The Swin
+tower runs it in every block wider than K1 / K3 take (Swin-B's stage 3, C
+= 1024; Swin-L's stages 2-3, C = 768 / 1536); at a width K7 does not take
+(C = 1536) its forward is the plain version, whose products are
+tensor-core ``mm``s with f32 output, and its backward still K5.
+``ops/mlp.py`` (K8) runs the same kernel without dp2 at the widths its own
+does not take.
 
 K1 and K3 are ``torch.autograd.Function``s that save only their inputs, as
 ``_block_fwd`` does. Their backward is ``_block_bwd``'s: recompute
@@ -452,16 +456,26 @@ def ln_mlp_forward(counted, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
     return out
 
 
+def _fused_ln_mlp_forward(h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
+    """``fused_ln_mlp``'s forward: the K7 kernel where it takes the width,
+    else the plain version (on the card too)."""
+    if ln_mlp_supported(h1.shape[-1], w1.shape[0]):
+        return ln_mlp_forward(fused_ln_mlp, h1, ln2s, ln2b, w1, b1, w2, b2,
+                              dp2, ln_eps)
+    return ln_mlp_plain(h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps)
+
+
 class _LnMlpFn(torch.autograd.Function):
-    """K7 forward; backward K5 + the LN2 input backward, dh1 = g + dh1_ln,
-    as ``_ln_mlp_bwd``. Saves only the inputs; dp2 gets no gradient."""
+    """K7 forward (``_fused_ln_mlp_forward``); backward K5 + the LN2 input
+    backward, dh1 = g + dh1_ln, as ``_ln_mlp_bwd``. Saves only the inputs;
+    dp2 gets no gradient."""
 
     @staticmethod
     def forward(ctx, h1, ln2s, ln2b, w1, b1, w2, b2, dp2, ln_eps):
         ctx.save_for_backward(h1, ln2s, ln2b, w1, b1, w2, b2, dp2)
         ctx.ln_eps = ln_eps
-        return ln_mlp_forward(fused_ln_mlp, h1, ln2s, ln2b, w1, b1, w2, b2,
-                              dp2, ln_eps)
+        return _fused_ln_mlp_forward(h1, ln2s, ln2b, w1, b1, w2, b2, dp2,
+                                     ln_eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -480,19 +494,20 @@ class _LnMlpFn(torch.autograd.Function):
 def fused_ln_mlp(h1, ln2s, ln2b, w1, b1, w2, b2,
                  dp2: Optional[torch.Tensor] = None,
                  ln_eps: float = 1e-5) -> torch.Tensor:
-    """K7: out = h1 + dp2 * fc2(gelu(fc1(LN2(h1)))) on (B, D, H, W, C), C <=
-    1024 (the Swin tower's stage 3 runs it at C = 1024, FF = 4096).
+    """K7: out = h1 + dp2 * fc2(gelu(fc1(LN2(h1)))) on (B, D, H, W, C): the
+    kernel at C <= 1024 (``ln_mlp_supported``), the plain version with its
+    rounding points at wider C (Swin-L's stage 3, C = 1536).
 
     w1 (FF, C), w2 (C, FF) in nn.Linear layout, in h1's dtype; LN parameters
     and biases f32; dp2: (B,) or (B, 1) f32 per-sample stochastic-depth
     multipliers, or None when inactive. On CUDA: h1, w1, w2 bf16 and
-    contiguous. Differentiable: the backward is K5 (``mlp_bwd``) and the
-    LN2 input backward; with grad mode off the kernel runs without the
-    autograd.Function."""
+    contiguous. Differentiable at every width: the backward is K5
+    (``mlp_bwd``) and the LN2 input backward; with grad mode off the
+    forward runs without the autograd.Function."""
     dp = None if dp2 is None else dp2.reshape(-1)
     if not torch.is_grad_enabled():
-        return ln_mlp_forward(fused_ln_mlp, h1, ln2s, ln2b, w1, b1, w2, b2,
-                              dp, ln_eps)
+        return _fused_ln_mlp_forward(h1, ln2s, ln2b, w1, b1, w2, b2, dp,
+                                     ln_eps)
     return _LnMlpFn.apply(h1, ln2s, ln2b, w1, b1, w2, b2, dp, ln_eps)
 
 

@@ -13,7 +13,7 @@ returns it as a dict. ``vs_baseline`` divides by bench.py's fixed 90
 clips/s, BASELINE.md's estimate of the reference's torch fp16 forward on
 an A100, not a measurement of this card. Raises where there is no card.
 
-    python -m lrce_tpu_torch.tools.bench [--plain] [--ln-mlp]
+    python -m lrce_tpu_torch.tools.bench [--plain]
 """
 
 from __future__ import annotations
@@ -41,12 +41,10 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
          model_cfg: Optional[E2EConfig] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--plain", action="store_true", help=common.PLAIN_HELP)
-    p.add_argument("--ln-mlp", action="store_true", help=common.LN_MLP_HELP)
     args = p.parse_args(argv)
     device = resolve_device(device)
 
-    model = common.flagship(device, model_cfg, plain=args.plain,
-                            ln_mlp=args.ln_mlp).eval()
+    model = common.flagship(device, model_cfg, plain=args.plain).eval()
     inputs = common.bench_inputs(BATCH, model.cfg, device)
     clips = BATCH * sum(model.cfg.temporal_scale)
     out = e2e_forward(model, *inputs)

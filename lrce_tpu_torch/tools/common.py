@@ -25,21 +25,17 @@ from lrce_tpu_torch.models.e2e import E2EConfig, LRCEModel
 FLAGSHIP = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32)
 PLAIN_HELP = ("run every Swin block on the plain PyTorch route instead of "
               "the CUDA kernels (the JAX package's LRCE_TPU_DISABLE_PALLAS)")
-LN_MLP_HELP = ("route the stage-3 LN2 + MLP through K7, fused_ln_mlp (the "
-               "JAX package's LRCE_TPU_LNMLP)")
 
 
 def flagship(device: torch.device, model_cfg: Optional[E2EConfig] = None, *,
-             plain: bool = False, ln_mlp: bool = False,
-             seed: int = 0) -> LRCEModel:
+             plain: bool = False, seed: int = 0) -> LRCEModel:
     """The model of ``model_cfg`` (default FLAGSHIP) on ``device``, random
     weights from ``seed``: f32 parameters, bf16 compute on the card and f32
     on the CPU; ``plain``: the Swin tower on its plain route."""
     compute = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = LRCEModel(model_cfg or FLAGSHIP, device=device,
                       dtype=torch.float32, compute_dtype=compute,
-                      generator=torch.Generator().manual_seed(seed),
-                      ln_mlp=ln_mlp)
+                      generator=torch.Generator().manual_seed(seed))
     model.video_extractor.swin.use_kernels = not plain
     return model
 

@@ -17,7 +17,7 @@ route: the counter does not see inside the hand-written CUDA kernels. XLA's
 "bytes accessed" has no counterpart and is not printed.
 
     python -m lrce_tpu_torch.tools.profile [--batch 8] [--train]
-        [--latency] [--trace-dir DIR] [--iters 10] [--ln-mlp]
+        [--latency] [--trace-dir DIR] [--iters 10]
 """
 
 from __future__ import annotations
@@ -63,15 +63,13 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--latency", action="store_true",
                    help="measure p50/p90 per-question latency (batch 1)")
-    p.add_argument("--ln-mlp", action="store_true", help=common.LN_MLP_HELP)
     p.add_argument("--plain", action="store_true", help=common.PLAIN_HELP)
     args = p.parse_args(argv)
     if args.latency:
         args.batch = 1
     device = resolve_device(device)
 
-    model = common.flagship(device, model_cfg, plain=args.plain,
-                            ln_mlp=args.ln_mlp)
+    model = common.flagship(device, model_cfg, plain=args.plain)
     b = args.batch
     inputs = common.bench_inputs(b, model.cfg, device)
     result = {"batch": b, "train": args.train}

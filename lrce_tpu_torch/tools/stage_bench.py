@@ -8,11 +8,10 @@ input shape (``--clips`` clips of 3 x 56 x 56 x 128, 3 x 28 x 28 x 256,
 by default), bf16, random weights and inputs from seeds. Times are CUDA
 events over ``--iters`` calls after a warm-up call, in the order kernel,
 plain, plain, kernel; each route's time is the mean of its two runs.
-``--ln-mlp`` routes stage 3's LN2 + MLP through K7. Returns one dict per
-stage. Raises where there is no card.
+Returns one dict per stage. Raises where there is no card.
 
     python -m lrce_tpu_torch.tools.stage_bench [--clips 48] [--iters 20]
-        [--stage N] [--ln-mlp]
+        [--stage N]
 """
 
 from __future__ import annotations
@@ -45,15 +44,14 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--stage", type=int, default=None,
                    help="bench only this stage index (0-3)")
-    p.add_argument("--ln-mlp", action="store_true", help=common.LN_MLP_HELP)
     args = p.parse_args(argv)
     device = resolve_device(device)
 
     cfg = (model_cfg or common.FLAGSHIP).swin
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     swin = S.SwinTransformer3D(cfg, dtype=dtype,
-                               generator=torch.Generator().manual_seed(0),
-                               ln_mlp=args.ln_mlp).to(device)
+                               generator=torch.Generator().manual_seed(0)
+                               ).to(device)
     shapes = stage_shapes(args.clips, cfg)
     stages = range(len(shapes)) if args.stage is None else [args.stage]
     rows = []
@@ -64,8 +62,7 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
 
         def run(kernels: bool, _layer=layer, _x=x):
             with torch.no_grad():
-                return _layer(_x, kernels, swin.consts, None, None,
-                              args.ln_mlp)
+                return _layer(_x, kernels, swin.consts)
 
         times = {True: 0.0, False: 0.0}
         for kernels in (True, False, False, True):

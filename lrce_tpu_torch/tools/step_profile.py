@@ -2,7 +2,7 @@
 """Time and profile the flagship train step of the port on one GPU.
 
     python -m lrce_tpu_torch.tools.step_profile [--steps 6] [--profile]
-                                                [--ln-mlp] [--frames 5]
+                                                [--frames 5]
 
 Run it from the root of the tree to be measured: the package and this
 script come from the current directory, so a comparison runs each
@@ -84,7 +84,6 @@ def _batch(rng, questions: int, frames: int = 5):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=6)
-    ap.add_argument("--ln-mlp", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
@@ -103,8 +102,7 @@ def main() -> int:
     cfg = E2EConfig(num_classes=1000, temporal_scale=(3,), text_seq_len=32,
                     frame_sample_size=args.frames)
     model = LRCEModel(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16,
-                      generator=torch.Generator().manual_seed(0),
-                      ln_mlp=args.ln_mlp)
+                      generator=torch.Generator().manual_seed(0))
     agent = AgentOE(model, default_args(), log_enabled=False, seed=0)
     rng = np.random.default_rng(7)
     batches = [_batch(rng, BATCH, args.frames) for _ in range(3)]
@@ -164,7 +162,7 @@ def main() -> int:
     peak = max(v for r in rows for k, v in r.items() if k.endswith("gib"))
     med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
     print(f"[step] {args.steps} steps of {BATCH} questions x 3 clips, "
-          f"ln_mlp={args.ln_mlp}: median wall {med['wall_ms']:.1f} ms "
+          f"median wall {med['wall_ms']:.1f} ms "
           f"(min {min(r['wall_ms'] for r in rows):.1f}, max "
           f"{max(r['wall_ms'] for r in rows):.1f}), median forward "
           f"{med['forward']:.1f}, loss {med['loss']:.1f}, backward "
@@ -174,7 +172,7 @@ def main() -> int:
           f"the backward {med['backward_peak_gib']:.2f}, the optimizer "
           f"{med['optimizer_peak_gib']:.2f})", flush=True)
     result = {"card": card, "steps": rows, "median": med, "peak_gib": peak,
-              "ln_mlp": args.ln_mlp, "batch": BATCH}
+              "batch": BATCH}
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

@@ -20,7 +20,7 @@ and the peak device memory (``torch.cuda.max_memory_allocated``); returns
 them as a dict. Raises where there is no card.
 
     python -m lrce_tpu_torch.tools.train_bench [--batch 16] [--iters 10]
-        [--ln-mlp] [--device-only]
+        [--device-only]
 """
 
 from __future__ import annotations
@@ -56,13 +56,11 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
     p.add_argument("--device-only", action="store_true",
                    help="skip the wall / prefetch regimes: measure only the "
                         "device and lagged regimes")
-    p.add_argument("--ln-mlp", action="store_true", help=common.LN_MLP_HELP)
     p.add_argument("--plain", action="store_true", help=common.PLAIN_HELP)
     args = p.parse_args(argv)
     device = resolve_device(device)
 
-    model = common.flagship(device, model_cfg, plain=args.plain,
-                            ln_mlp=args.ln_mlp)
+    model = common.flagship(device, model_cfg, plain=args.plain)
     agent = AgentOE(model, common.agent_args("bench", args.batch, args.reg),
                     log_enabled=False)
     b = args.batch
@@ -112,7 +110,7 @@ def main(argv=None, *, device=DEFAULT_DEVICE,
     lag = (time.perf_counter() - t0) / (args.iters + 1)
 
     clips = sum(model.cfg.temporal_scale) * b
-    print(f"batch {b} ({clips} clips), ln_mlp={args.ln_mlp}, "
+    print(f"batch {b} ({clips} clips), "
           f"plain={args.plain}, reg={args.reg}")
     result = {"batch": b, "clips": clips, "first_s": first, "loss": loss}
     for label, t in (("wall", wall), ("prefetch", pref), ("device", dev),

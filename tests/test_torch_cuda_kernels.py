@@ -307,6 +307,9 @@ def _kernel_launches(fn, tries: int = 3):
 K7_SHAPES = {"c64": ((2, 2, 6, 9, 64), 256), "stage3": ((3, 3, 7, 7, 1024), 4096),
              "stage3-6clips": ((6, 3, 7, 7, 1024), 4096),
              "stage3-48clips": ((48, 3, 7, 7, 1024), 4096)}
+# Swin-L's stage 3, wider than K7 takes: ``fused_ln_mlp`` runs the plain
+# forward there, and K5 as its backward
+SWINL_STAGE3 = ((2, 3, 12, 12, 1536), 6144)
 
 
 @pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
@@ -348,6 +351,28 @@ def test_k8(dev, shape):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
+def test_k7_at_swin_l_stage2(dev, with_dp):
+    """Video Swin-L's stage 2 at a step of 60 clips (C = 768, FF = 3072, T =
+    103,680 rows: 810 row blocks, fc2 unsplit): one call of the wrapper,
+    within the limits of the plain version, a second call equal to the
+    first bit for bit. Counted by the wrapper, not by torch.profiler,
+    whose captures late in a long process can come back without the
+    call's events (``_kernel_launches``)."""
+    x, _, args, dp = _mlp_args(np.random.default_rng(10), dev,
+                               (60, 3, 24, 24, 768), 3072)
+    dp = dp if with_dp else None
+    before = SB.fused_ln_mlp.launches
+    with torch.no_grad():
+        got = SB.fused_ln_mlp(x, *args, dp)
+        again = SB.fused_ln_mlp(x, *args, dp)
+    assert SB.fused_ln_mlp.launches == before + 2
+    assert SB.ln_mlp_plan(x.numel() // 768, 768, 3072,
+                          WA.sm_count(x)).splits == 1
+    _close(got, SB.ln_mlp_plain(x, *args, dp))
+    assert torch.equal(got, again)
+
+
 def test_k5_at_stage3_width(dev):
     x, g, args, dp = _mlp_args(np.random.default_rng(12), dev,
                                (3, 3, 7, 7, 1024), 4096)
@@ -359,15 +384,19 @@ def test_k5_at_stage3_width(dev):
         _close(a, b)
 
 
-@pytest.mark.parametrize("shape", ["c64", "stage3"])
+@pytest.mark.parametrize("shape", ["c64", "stage3", "swinl-stage3"])
 def test_fused_ln_mlp_grads(dev, shape):
     """K7's custom backward (K5 + the LN2 input backward) against autograd
-    through the plain version."""
-    dims, ff = K7_SHAPES[shape]
+    through the plain version; at C = 1536 the forward is the plain
+    version (no K7 launch) and the backward still K5."""
+    dims, ff = SWINL_STAGE3 if shape == "swinl-stage3" else K7_SHAPES[shape]
     x, _, args, dp = _mlp_args(np.random.default_rng(13), dev, dims, ff)
-    before = SB.mlp_bwd.launches
+    before = SB.mlp_bwd.launches, SB.fused_ln_mlp.launches
     got = _grads(lambda x_, w: SB.fused_ln_mlp(x_, *w, dp), x, args)
-    assert SB.mlp_bwd.launches == before + 1
+    k7 = SB.ln_mlp_supported(dims[-1], ff)
+    assert k7 is (shape != "swinl-stage3")
+    assert (SB.mlp_bwd.launches, SB.fused_ln_mlp.launches) == (
+        before[0] + 1, before[1] + k7)
     want = _grads(lambda x_, w: SB.ln_mlp_plain(x_, *w, dp), x, args)
     for a, b in zip(got, want):
         _close(a, b, rel=3e-2, max_rel=6e-2)
@@ -470,11 +499,14 @@ def test_gemm_tn_at_a_ragged_token_count(dev, shape, splits):
     assert torch.equal(got, G.gemm_tn(g, a, splits))
 
 
-# stage 0 (FF = 512: four column tiles) and a ragged token count
+# stage 0 (FF = 512: four column tiles) and a ragged token count; Video
+# Swin-L's stages 2 and 3 at a step of 60 clips (T = 103,680 and 25,920)
 @pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
 @pytest.mark.parametrize("dims,ff", [((3, 3, 14, 7, 128), 512),
-                                     ((3, 3, 7, 7, 1024), 4096)],
-                         ids=["c128", "c1024"])
+                                     ((3, 3, 7, 7, 1024), 4096),
+                                     ((60, 3, 24, 24, 768), 3072),
+                                     ((60, 3, 12, 12, 1536), 6144)],
+                         ids=["c128", "c1024", "swinl-c768", "swinl-c1536"])
 def test_k5_at_flagship_widths_twice(dev, dims, ff, with_dp):
     x, g, args, dp = _mlp_args(np.random.default_rng(22), dev, dims, ff)
     k5 = (x, g, *args[:5], dp if with_dp else None, 1e-5)
@@ -909,20 +941,18 @@ def test_k2_at_swin_l_stage3(dev):
     _close(got, WA.window_attention_plain(*args))
 
 
-def test_train_step_at_n432_matches_the_plain_route(dev):
-    """Video Swin-L's stages at 5 frames of 192 x 192 (widths cut to C = 64
-    / 128 / 256 / 512 with head_dim 32, the (8, 12, 12) window): stages 0-1
-    at (3, 48, 48) and (3, 24, 24) in (3, 12, 12) windows of N = 432,
-    shifted (0, 6, 6) in their second block, K1 + K3; stage 2 one such
-    window a clip, unshifted, two K1; stage 3 (3, 6, 6), N = 108, two K1.
-    Every block's K4 takes the window (the rows / columns pair at N = 432);
-    no forward call takes the WMMA CTA. Loss and per-stage gradients within
-    chip_smoke's route-parity limits (1e-2, 1e-1)."""
+def _swin_l_step_matches_the_plain_route(dev, embed_dim: int) -> dict:
+    """A training step of Swin-L's stages at 5 frames of 192 x 192 (head_dim
+    32, the (8, 12, 12) window, depths 2 / 2 / 2 / 2, widths embed_dim x 1 /
+    2 / 4 / 8) on the kernel route against the plain route: loss and
+    per-stage gradients within chip_smoke's route-parity limits (1e-2,
+    1e-1). Returns the wrappers' launches on the kernel route."""
     from lrce_tpu_torch.models import swin3d as PS
 
-    cfg = PS.SwinConfig(embed_dim=64, depths=(2, 2, 2, 2),
-                        num_heads=(2, 4, 8, 16), window_size=(8, 12, 12),
-                        drop_path_rate=0.0)
+    cfg = PS.SwinConfig(embed_dim=embed_dim, depths=(2, 2, 2, 2),
+                        num_heads=tuple(embed_dim * 2 ** i // 32
+                                        for i in range(4)),
+                        window_size=(8, 12, 12), drop_path_rate=0.0)
     model = PS.SwinTransformer3D(cfg, dtype=torch.bfloat16,
                                  generator=torch.Generator().manual_seed(0))
     model = model.to(dev)
@@ -946,17 +976,48 @@ def test_train_step_at_n432_matches_the_plain_route(dev):
                  for layer in model.layers]
         return loss.item(), grads
 
-    before = WA.window_attention_bwd.launches
+    wrappers = {"K1": SB.fused_swin_block, "K3": SB.fused_swin_pair,
+                "K2": WA.fused_window_attention_hsplit,
+                "K7": SB.fused_ln_mlp, "K5": SB.mlp_bwd,
+                "K4": WA.window_attention_bwd}
+    before = {k: f.launches for k, f in wrappers.items()}
     WA.attn_fwd_cta_launches(reset=True)
     lk, gk = run(True)
-    ctas = WA.attn_fwd_cta_launches(reset=True)
-    assert WA.window_attention_bwd.launches - before == 8
-    # each block's forward attention and K6's recompute of it: N = 432 at
-    # stages 0-2, N = 108 at stage 3
-    assert ctas == {"attn_fwd_kernel": 4, "attn_fwd_big_kernel": 12,
-                    "window_attn_kernel": 0}
+    launches = {k: f.launches - before[k] for k, f in wrappers.items()}
+    launches["ctas"] = WA.attn_fwd_cta_launches(reset=True)
     lp, gp = run(False)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() <= 1e-1
+    return launches
+
+
+def test_train_step_at_n432_matches_the_plain_route(dev):
+    """Widths cut to C = 64 / 128 / 256 / 512: stages 0-1 at (3, 48, 48)
+    and (3, 24, 24) in (3, 12, 12) windows of N = 432, shifted (0, 6, 6) in
+    their second block, K1 + K3; stage 2 one such window a clip, unshifted,
+    two K1; stage 3 (3, 6, 6), N = 108, two K1. Every block's K4 takes the
+    window (the rows / columns pair at N = 432) and K5 its MLP; no forward
+    call takes the WMMA CTA."""
+    launches = _swin_l_step_matches_the_plain_route(dev, 64)
+    # each block's forward attention and K6's recompute of it: N = 432 at
+    # stages 0-2, N = 108 at stage 3
+    assert launches == {"K1": 6, "K3": 2, "K2": 0, "K7": 0, "K5": 8, "K4": 8,
+                        "ctas": {"attn_fwd_kernel": 4,
+                                 "attn_fwd_big_kernel": 12,
+                                 "window_attn_kernel": 0}}
+
+
+def test_train_step_at_swin_l_widths_matches_the_plain_route(dev):
+    """Swin-L's own widths, C = 192 / 384 / 768 / 1536: stages 0-1 K1 + K3
+    as above; stages 2-3 (C > 512) K2, then LN2 + MLP through
+    ``fused_ln_mlp``: K7 at C = 768, the plain forward at C = 1536, K5 the
+    backward of every block."""
+    launches = _swin_l_step_matches_the_plain_route(dev, 192)
+    # forward CTAs: K1 / K3 and K6's recompute at stages 0-1 and K2 at
+    # stage 2 (N = 432), K2 at stage 3 (N = 108)
+    assert launches == {"K1": 2, "K3": 2, "K2": 4, "K7": 2, "K5": 8, "K4": 8,
+                        "ctas": {"attn_fwd_kernel": 2,
+                                 "attn_fwd_big_kernel": 10,
+                                 "window_attn_kernel": 0}}

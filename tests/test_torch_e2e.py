@@ -107,9 +107,10 @@ def test_model_defaults_to_the_card_and_raises_without_one():
         PE.LRCEModel(pcfg)
     model = PE.LRCEModel(pcfg, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
-    assert not model.video_extractor.swin.ln_mlp        # off by default
-    routed = PE.LRCEModel(pcfg, device="cpu", ln_mlp=True)
-    assert routed.video_extractor.swin.ln_mlp
+    # the Swin tower's LN2 + MLP route is chosen by shape, by no argument
+    assert not hasattr(model.video_extractor.swin, "ln_mlp")
+    with pytest.raises(TypeError, match="ln_mlp"):
+        PE.LRCEModel(pcfg, device="cpu", ln_mlp=True)
 
 
 def test_port_never_imports_jax():

@@ -6,7 +6,9 @@ numpy-seeded inputs on both sides:
     chunks, with and without dp2;
   - ``fused_ln_mlp`` (the autograd.Function: backward K5 + the LN2 input
     backward) forward and every gradient against ``jax.grad`` of the JAX
-    ``fused_ln_mlp`` (backward ``_mlp_bwd_impl`` in interpret mode);
+    ``fused_ln_mlp`` (backward ``_mlp_bwd_impl`` in interpret mode), also
+    at C = 1536, wider than the K7 kernel takes, where its forward is
+    ``ln_mlp_plain`` on the card too;
   - ``fused_mlp_plain`` and ``fused_mlp``'s gradients against the JAX
     ``fused_mlp`` (Pallas forward in interpret mode, XLA-equivalent VJP);
   - the K7 kernel's work list (``ln_mlp_plan``), its fc2 slices summed in
@@ -14,7 +16,7 @@ numpy-seeded inputs on both sides:
   - the port's copy of the reference's rational erf (the kernels' GELU)
     against ``_erf_f32`` and ``torch.erf``;
   - a (W-MSA, SW-MSA) pair of Swin blocks on the port's C >
-    ``BLOCK_KERNEL_MAX_C`` route with ``ln_mlp=True`` against
+    ``BLOCK_KERNEL_MAX_C`` route (K2, then ``fused_ln_mlp``) against
     ``lrce_tpu.models.swin3d.swin_block(use_pallas="hsplit")`` with
     ``LRCE_TPU_LNMLP`` set, forward and parameter gradients.
 
@@ -50,6 +52,9 @@ from lrce_tpu_torch.utils.convert import swin_state_dict
 TOL = dict(rtol=1e-4, atol=1e-4)
 ROUTE_TOL = dict(rtol=5e-4, atol=5e-4)
 SHAPES = {"c64": ((2, 3, 7, 7, 64), 256), "c32": ((2, 2, 8, 8, 32), 128)}
+# the Function's shapes: also Swin-L's stage-3 width (C = 1536, FF = 6144)
+# at 8 rows, wider than the K7 kernel takes
+FUNCTION_SHAPES = {**SHAPES, "c1536": ((2, 1, 2, 2, 1536), 6144)}
 NAMES = ("h1", "ln2s", "ln2b", "w1", "b1", "w2", "b2")
 
 
@@ -104,9 +109,9 @@ def test_ln_mlp_plain_matches_pallas_forward(shape, ffc, with_dp):
 
 
 @pytest.mark.parametrize("with_dp", [False, True], ids=["no-dp", "dp"])
-@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("shape", list(FUNCTION_SHAPES))
 def test_fused_ln_mlp_forward_and_grads_match_jax(shape, with_dp):
-    dims, ff = SHAPES[shape]
+    dims, ff = FUNCTION_SHAPES[shape]
     h1, a, dp2, g = _case(dims, ff, 31, with_dp)
 
     def jax_fn(h, *w):
@@ -123,6 +128,8 @@ def test_fused_ln_mlp_forward_and_grads_match_jax(shape, with_dp):
     got = SB.fused_ln_mlp(ht, *leaves, dpt, 1e-5)
     assert SB.fused_ln_mlp.launches == before      # CPU: plain version
     assert got.grad_fn is not None
+    assert torch.equal(got.detach(), SB.ln_mlp_plain(
+        ht.detach(), *(t.detach() for t in leaves), dpt, 1e-5))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
     got.backward(torch.from_numpy(g))
     for name, t, w in zip(NAMES, [ht] + leaves, want):
@@ -338,8 +345,7 @@ def test_swin_blocks_ln_mlp_route_matches_jax_hsplit_lnmlp(monkeypatch):
 
     pcfg = PS.SwinConfig(embed_dim=c, depths=(2, 2), num_heads=(heads, heads),
                          window_size=window)
-    model = PS.SwinTransformer3D(pcfg, generator=torch.Generator().manual_seed(0),
-                                 ln_mlp=True)
+    model = PS.SwinTransformer3D(pcfg, generator=torch.Generator().manual_seed(0))
     model.load_state_dict(swin_state_dict(params, ""))
     layer = model.layers[0]
     layer.downsample = None             # the blocks only, as on the JAX side
@@ -348,7 +354,7 @@ def test_swin_blocks_ln_mlp_route_matches_jax_hsplit_lnmlp(monkeypatch):
     monkeypatch.setattr(PS, "fused_ln_mlp",
                         lambda *a, **k: (routed.append(1), real(*a, **k))[1])
     xt = torch.from_numpy(x).requires_grad_()
-    got = layer(xt, True, model.consts, None, None, model.ln_mlp)
+    got = layer(xt, True, model.consts)
     assert len(routed) == 2, "the port's blocks did not route through K7"
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                **ROUTE_TOL)
@@ -362,9 +368,10 @@ def test_swin_blocks_ln_mlp_route_matches_jax_hsplit_lnmlp(monkeypatch):
         checked += 1
     assert checked == 2 * 13
 
-    # the default route leaves LN2 + MLP to the plain ops: same output
+    # with grad mode off the route runs fused_ln_mlp's forward alone: same
+    # output
     routed.clear()
     with torch.no_grad():
-        plain = layer(xt, True, model.consts, None, None, False)
-    assert not routed
-    np.testing.assert_allclose(plain.numpy(), np.asarray(want), **ROUTE_TOL)
+        again = layer(xt, True, model.consts)
+    assert len(routed) == 2
+    np.testing.assert_allclose(again.numpy(), np.asarray(want), **ROUTE_TOL)

@@ -22,6 +22,7 @@ from lrce_tpu_torch.models import bert as PB
 from lrce_tpu_torch.models import e2e as PE
 from lrce_tpu_torch.models import swin3d as PS
 from lrce_tpu_torch.ops import window_attn as WA
+from lrce_tpu_torch.utils import trace
 from portbench.reference import lrce as R
 
 FRAMES, SIZE, B = 5, 96, 2      # stage 0: (3, 24, 24), four (3, 12, 12) windows
@@ -185,25 +186,37 @@ def _spy_routes(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("c,heads,dims,grad,ln_mlp,want", [
-    # Swin-L's stage 3: one (3, 12, 12) window, no shift, K2 either way
-    (1536, 48, (3, 12, 12), True, False, ["fused_window_attention_hsplit"] * 2),
-    (1536, 48, (3, 12, 12), False, False, ["fused_window_attention_hsplit"] * 2),
-    # K7 does not take C = 1536: LN2 + MLP stay plain with ln_mlp set
-    (1536, 48, (3, 12, 12), True, True, ["fused_window_attention_hsplit"] * 2),
-    (768, 24, (3, 24, 24), True, True,
-     ["fused_window_attention_hsplit", "fused_ln_mlp"] * 2),
+K2_LN_MLP = ["fused_window_attention_hsplit", "fused_ln_mlp"] * 2
+
+
+@pytest.mark.parametrize("c,heads,dims,grad,k7,want", [
+    # Swin-L's stage 3: one (3, 12, 12) window, no shift, K2 either way,
+    # then LN2 + MLP through fused_ln_mlp, whose forward is the plain
+    # version: K7 takes C <= 1024
+    (1536, 48, (3, 12, 12), True, 0, K2_LN_MLP),
+    (1536, 48, (3, 12, 12), False, 0, K2_LN_MLP),
+    # C = 1536 on a (3, 24, 24) map: the shifted block rolls around K2
+    (1536, 48, (3, 24, 24), True, 0, K2_LN_MLP),
+    # Swin-L's stage 2 and Swin-B's stage 3: fused_ln_mlp's forward is K7
+    (768, 24, (3, 24, 24), True, 2, K2_LN_MLP),
     # wider than any kernel takes: the plain block
-    (2048, 64, (3, 12, 12), False, False, ["swin_block"] * 2),
+    (2048, 64, (3, 12, 12), False, 0, ["swin_block"] * 2),
     # the unclamped (8, 12, 12) window, N = 1152: the plain block
-    (64, 2, (8, 12, 12), True, False, ["swin_block"] * 2),
-    (64, 2, (8, 12, 12), False, False, ["swin_block"] * 2),
+    (64, 2, (8, 12, 12), True, 0, ["swin_block"] * 2),
+    (64, 2, (8, 12, 12), False, 0, ["swin_block"] * 2),
     # N = 432 at stage 0 widths: K1 and K3 in either mode
-    (192, 6, (3, 24, 24), True, False, ["fused_swin_block", "fused_swin_pair"]),
+    (192, 6, (3, 24, 24), True, 0, ["fused_swin_block", "fused_swin_pair"]),
+    (768, 24, (3, 24, 24), False, 2, K2_LN_MLP),
+    (1024, 32, (3, 12, 12), True, 2, K2_LN_MLP),
+    (1024, 32, (3, 12, 12), False, 2, K2_LN_MLP),
 ], ids=["c1536-grad", "c1536-nograd", "c1536-lnmlp", "c768-lnmlp",
-        "c2048", "n1152-grad", "n1152-nograd", "c192-n432"])
-def test_stage_route(monkeypatch, c, heads, dims, grad, ln_mlp, want):
-    """The route never sends a stage to a kernel that refuses it."""
+        "c2048", "n1152-grad", "n1152-nograd", "c192-n432", "c768-nograd",
+        "c1024-grad", "c1024-nograd"])
+def test_stage_route(monkeypatch, c, heads, dims, grad, k7, want):
+    """The route never sends a stage to a kernel that refuses it. It is
+    chosen by shape alone: every K2-route block (C > 512) runs LN2 + MLP
+    through ``fused_ln_mlp``, which the tracer counts, with the blocks whose
+    forward is K7 (C <= 1024) apart."""
     cfg = PS.SwinConfig(embed_dim=c, depths=(2,), num_heads=(heads,),
                         window_size=(8, 12, 12))
     with torch.device("meta"):
@@ -211,9 +224,16 @@ def test_stage_route(monkeypatch, c, heads, dims, grad, ln_mlp, want):
                               None)
         x = torch.empty((1, *dims, c))
     seen = _spy_routes(monkeypatch)
-    with torch.set_grad_enabled(grad):
-        layer(x, True, PS.DeviceConstants(), ln_mlp=ln_mlp)
+    trace.enable(detail=True)
+    try:
+        with torch.set_grad_enabled(grad):
+            layer(x, True, PS.DeviceConstants())
+    finally:
+        trace.disable()
+        counters = trace.drain()[1]
     assert seen == want
+    assert counters.get("swin.wide_mlp_fused", 0) == want.count("fused_ln_mlp")
+    assert counters.get("swin.wide_mlp_k7", 0) == k7
 
 
 def test_a_model_config_names_the_tower(tmp_path, monkeypatch):

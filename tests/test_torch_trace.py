@@ -195,6 +195,31 @@ def test_work_counters_only_where_asked(detail):
     assert counters == want
 
 
+@pytest.mark.parametrize("grad", [False, True], ids=["nograd", "grad"])
+def test_wide_mlp_counters(monkeypatch, grad):
+    """``enable(detail=True)`` counts the blocks on the K2 route (C >
+    ``BLOCK_KERNEL_MAX_C``, cut to 16 here so that every stage takes it)
+    whose LN2 + MLP ran ``fused_ln_mlp`` (all of them) and those whose
+    forward ran K7 (``ln_mlp_supported``: C = 64 and 128, not 32): 6 and 4
+    over three stages of two blocks, with grad mode on or off; a plain
+    ``enable()`` counts neither."""
+    monkeypatch.setattr(PS, "BLOCK_KERNEL_MAX_C", 16)
+    cfg = PS.SwinConfig(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 4),
+                        window_size=(2, 3, 3))
+    swin = PS.SwinTransformer3D(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((1, 4, 48, 48, 3), generator=torch.Generator().manual_seed(1))
+    x.requires_grad_(grad)
+    for detail in (False, True):
+        trace.enable(detail=detail)
+        with torch.set_grad_enabled(grad):
+            swin(x)
+        _, counters = trace.drain()
+        trace.disable()
+        wide = {k: v for k, v in counters.items() if k.startswith("swin.")}
+        assert wide == ({"swin.wide_mlp_fused": 6, "swin.wide_mlp_k7": 4}
+                        if detail else {})
+
+
 def test_tracing_changes_no_number():
     batch = tiny_batch(1)
     x = [torch.from_numpy(a) for a in batch[:4]]
