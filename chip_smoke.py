@@ -27,8 +27,9 @@ Phases, each raising on failure (the script then exits non-zero):
      calls it), per call and summed over the 46 calls of a train step, as
      one JSON line, each call's CTA named by the library's launch counts
      (``ops/window_attn.attn_fwd_cta_launches``): attn_fwd_kernel at N =
-     147; K6 at head_dim 64, a shape only the WMMA CTA (window_attn_kernel)
-     takes, against plain; the 16-frame window (8, 7, 7), N = 392, which
+     147; K6 at head_dim 64, a shape no attention CTA takes, refused
+     before any launch, and a Swin stage at that width on the plain block,
+     with grad mode on and off, no kernel launched; the 16-frame window (8, 7, 7), N = 392, which
      the launcher gives attn_fwd_big_kernel, at every stage at 6 and 48
      clips (its output held to plain chunk by chunk of 12 / 24 / 48 / 48
      clips, the output being per window), timed beside its bound and the
@@ -123,7 +124,7 @@ Phases, each raising on failure (the script then exits non-zero):
      gradients, a request's logits, the limits of 7 and 4), then a warm-up
      and 2 AgentOE steps at 16 questions x 3 clips on the kernel route, each
      launching K1 11, K3 11, K2 2, K7 2, K6 22, K5 24, K4 24 and attn_fwd_big_kernel
-     46 times (window_attn_kernel never); step ms, peak and the card on one
+     46 times; step ms, peak and the card on one
      ``[frames16]`` line;
   8. cli: the file-based path through the command lines a user runs. A
      TGIF-frameqa directory made from a seed in a temporary directory (8
@@ -213,7 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -775,8 +776,12 @@ def phase_attn_core():
         print(f"[attn_core] ln_rows {kind} stage {stage}, {clips} clips: "
               f"{ms:.4f} ms", flush=True)
 
-    # a shape only the WMMA CTA (window_attn_kernel) takes: head_dim 64 (C
-    # = 256, 4 heads) at the 5-frame window, shifted, through K6
+    from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
+                                              SwinConfig)
+
+    # head_dim 64 (C = 256, 4 heads), which no attention CTA takes, at the
+    # 5-frame window, shifted: K6 refuses it before any launch, and a Swin
+    # stage of that width takes the plain block, with grad mode on and off
     c64, heads64 = 256, 4
     x64 = _seeded((2, 3, 14, 14, c64), gen)
     p64 = _block_weights(c64, heads64, n, gen, None)
@@ -784,14 +789,35 @@ def phase_attn_core():
     k6 = (x64, *(p64[k] for k in ATTN_KEYS),
           mask64.reshape(1, 2, 2, n, n).cuda(), WINDOW, heads64, 1e-5, SHIFT)
     WA.attn_fwd_cta_launches(reset=True)
-    got64 = WA.fused_window_attention(*k6)
+    try:
+        WA.fused_window_attention(*k6)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
     ctas = WA.attn_fwd_cta_launches(reset=True)
-    _compare(f"K6 at head_dim {c64 // heads64}, window {WINDOW} (N {n}): "
-             f"{_cta_named(ctas)}", got64, WA.window_attention_plain(*k6))
-    require(ctas == _only_cta("window_attn_kernel"),
-            f"K6 at head_dim 64 launched {ctas}, expected window_attn_kernel "
-            "once")
-    del x64, p64, k6, got64
+    require(refused is not None and ctas == _only_cta(None),
+            f"K6 at head_dim 64: refused {refused!r}, launched {ctas}; "
+            "expected a ValueError before any launch")
+    layer64 = BasicLayer(c64, 2, heads64, SwinConfig(window_size=(8, 7, 7)),
+                         False, torch.bfloat16,
+                         torch.Generator().manual_seed(4)).cuda()
+    x64s = x64.detach().requires_grad_()
+    _reset_counts()
+    WA.attn_fwd_cta_launches(reset=True)
+    layer64(x64s, True, DeviceConstants()).float().sum().backward()
+    with torch.no_grad():
+        y64 = layer64(x64, True, DeviceConstants())
+    counts64, ctas = _counts(), WA.attn_fwd_cta_launches(reset=True)
+    print(f"[route] head_dim 64, window {WINDOW} (N {n}): K6 refused "
+          f"({refused}); a stage with grad and without launched {counts64}, "
+          f"forward CTAs {ctas}", flush=True)
+    require(not any(counts64.values()) and ctas == _only_cta(None)
+            and bool(torch.isfinite(y64.float()).all())
+            and x64s.grad is not None
+            and bool(torch.isfinite(x64s.grad).all()),
+            f"a stage at head_dim 64 launched {counts64} and the forward "
+            f"CTAs {ctas}, expected the plain block and no kernel")
+    del x64, x64s, p64, k6, layer64, y64
     window, c, heads = (8, 7, 7), 128, 4
     n_big = window[0] * window[1] * window[2]
     x = _seeded((2, 8, 14, 14, c), gen)
@@ -800,9 +826,6 @@ def phase_attn_core():
     # the same geometry through a Swin stage: with grad mode on and off it
     # runs K1 / K3, and with grad K6 / K5 and K4 (its rows / columns pair)
     # in the backward
-    from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
-                                              SwinConfig)
-
     layer = BasicLayer(c, 2, heads, SwinConfig(window_size=window), False,
                        torch.bfloat16, torch.Generator().manual_seed(3)).cuda()
     xs = x.detach().requires_grad_()
@@ -816,7 +839,7 @@ def phase_attn_core():
         layer(x, True, DeviceConstants())
     without = _counts()
     print(f"[route] window {window} (N {n_big}), head_dim {c // heads}: K4 "
-          f"takes it {WA.attn_bwd_supported(n_big, c // heads)}; launches, "
+          f"takes it {WA.attn_supported(n_big, c // heads)}; launches, "
           f"forward + backward with grad {with_grad}, forward without grad "
           f"{without}; forward attention CTAs with grad {ctas}", flush=True)
     require(ctas == _only_cta("attn_fwd_big_kernel", 4),
@@ -834,8 +857,9 @@ def phase_attn_core():
     return out, ln_ms, n392_sums
 
 
-def _only_cta(cta: str, times: int = 1) -> dict:
-    """The forward attention CTAs' launch counts when only ``cta`` ran."""
+def _only_cta(cta: Optional[str], times: int = 1) -> dict:
+    """The forward attention CTAs' launch counts when only ``cta`` ran
+    (None: none ran)."""
     from lrce_tpu_torch.ops import window_attn as WA
 
     return {k: (times if k == cta else 0) for k in WA.ATTN_FWD_CTAS}
@@ -1547,8 +1571,7 @@ def phase_swinl():
     stage 2-3 LN2 + MLP (``_swinl_mlp``: K7 at C = 768, K5 at C = 768 and
     1536); and a Swin-L stage of each route through ``BasicLayer`` with
     grad mode on and off, its launches and the tracer's counters counted
-    (K4's pair and attn_fwd_big_kernel, never the WMMA CTA or the plain
-    block; K7 / K5 for LN2 + MLP at C > 512). Returns {"core": {clips:
+    (K4's pair and attn_fwd_big_kernel, never the plain block; K7 / K5 for LN2 + MLP at C > 512). Returns {"core": {clips:
     sums}, "K4": {clips: sums}, "K2" / "K7" / "K5": sums at a step's
     clips}."""
     from lrce_tpu_torch.models.swin3d import (BasicLayer, DeviceConstants,
@@ -1560,7 +1583,7 @@ def phase_swinl():
     geo, gen = N432, torch.Generator().manual_seed(432)
     n = math.prod(geo.window)
     require(WA.attn_fwd_cta(n, 32) == "attn_fwd_big_kernel"
-            and WA.attn_bwd_supported(n, 32),
+            and WA.attn_supported(n, 32),
             f"N = {n}, head_dim 32: the shape rules name no kernel")
     core_rows, core = _attn_core_big(gen, geo)
     print(json.dumps({"attn_core_n432": core_rows}), flush=True)

@@ -109,7 +109,7 @@
 //     ten-warp CTA does six (S and dP once more in each CTA). On an NVIDIA
 //     H100 80GB HBM3 at 700 W, the 24 calls of a 48-clip step of 16 frames
 //     take ~190 ms against a 16.2 ms bound: the rows CTA ~64, the columns
-//     CTA ~92 (tools/k4_bench.py); both wait on latency and on shared
+//     CTA ~92 (timed alone); both wait on latency and on shared
 //     memory, not on the tensor cores.
 #include "swin_common.cuh"
 

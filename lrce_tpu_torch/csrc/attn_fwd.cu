@@ -61,10 +61,8 @@
 // warp and mbarriers per stage of a three-window ring instead of the
 // per-window __syncthreads (the consumer warps free to drift apart): 1.5%.
 // Takes head_dim 16 or 32 and windows of at most 160 tokens. Windows of
-// 161-448 tokens at head_dim 16 or 32 run attn_fwd_big_kernel (below); other
-// shapes (any head_dim that is a multiple of 16, any N whose tiles fit
-// shared memory) window_attn_kernel of swin_common.cu: launch_attn chooses
-// by shape between the three hand-written kernels.
+// 161-448 tokens at head_dim 16 or 32 run attn_fwd_big_kernel (below):
+// launch_attn chooses by shape between the two and refuses any other shape.
 #include "swin_common.cuh"
 
 #include "hopper.cuh"
@@ -862,9 +860,8 @@ int launch_attn_fwd_big_rows(const bf16* qkv, bf16* ctx,
 }
 
 // launches of each CTA that launch_attn chose: attn_fwd_kernel,
-// attn_fwd_big_kernel, window_attn_kernel (host-side, read by
-// lrce_attn_fwd_counts)
-long long g_attn_counts[3] = {0, 0, 0};
+// attn_fwd_big_kernel (host-side, read by lrce_attn_fwd_counts)
+long long g_attn_counts[2] = {0, 0};
 
 int counted(int rc, int which) {
   if (rc == 0) ++g_attn_counts[which];
@@ -873,24 +870,21 @@ int counted(int rc, int which) {
 
 }  // namespace
 
-// The choice by shape between the three hand-written kernels, for head_dim
-// 16 or 32: attn_fwd_kernel for windows of at most 160 tokens (every stage
-// of Swin-B on 5-frame clips), attn_fwd_big_kernel for 161-448 (Swin-B on
-// 16-frame clips, Swin-L at 384 on 5-frame clips); window_attn_kernel for
-// the rest. groups: window groups
-// of the grid (ops/window_attn.attn_fwd_launch_groups). Returns the
-// launch's error code; a launch is counted per kernel.
+// The choice by shape between the two hand-written kernels, for head_dim
+// 16 or 32 (ops/window_attn.attn_supported): attn_fwd_kernel for windows of
+// at most 160 tokens (every stage of Swin-B on 5-frame clips),
+// attn_fwd_big_kernel for 161-448 (Swin-B on 16-frame clips, Swin-L at 384
+// on 5-frame clips); any other shape is refused. groups: window groups of
+// the grid (ops/window_attn.attn_fwd_launch_groups). Returns the launch's
+// error code; a launch is counted per kernel.
 int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
                 const float* mask, const int* labels, const float* mask_off,
                 long long nwin_total, int nwin_clip, int N, int C,
                 int num_heads, int groups, cudaStream_t stream) {
   const int hd = C / num_heads;
   const int Np = (N + 15) / 16 * 16;
-  if (Np > FB_MAX_NP || (hd != 16 && hd != 32))
-    return counted(launch_attn_wmma(qkv, ctx, rel_bias, mask, nwin_total,
-                                    nwin_clip, N, C, num_heads, stream),
-                   2);
-  if (groups < 1 || groups > nwin_total || (labels && !mask_off) ||
+  if (Np > FB_MAX_NP || (hd != 16 && hd != 32) || groups < 1 ||
+      groups > nwin_total || (labels && !mask_off) ||
       nwin_total > 0x7fffffffLL - groups)
     return (int)cudaErrorInvalidValue;
   const int n = (int)nwin_total;
@@ -931,8 +925,7 @@ extern "C" {
 // (num_heads, N, N) f32; mask (nwin_clip, N, N) f32 or null; mask_labels
 // (nwin_clip, ceil16(N)) int32 and mask_off (nwin_clip) f32, or both null
 // (see launch_attn in swin_common.cuh); ctx (nwin_total * N, C) bf16 out.
-// 1 <= groups <= nwin_total window groups where the shape takes
-// attn_fwd_kernel or attn_fwd_big_kernel.
+// 1 <= groups <= nwin_total window groups; head_dim 16 or 32, N <= 448.
 int lrce_window_attn_core(const void* qkv, void* ctx, const void* rel_bias,
                           const void* mask, const void* mask_labels,
                           const void* mask_off, int nwin_total, int nwin_clip,
@@ -951,11 +944,11 @@ int lrce_window_attn_core(const void* qkv, void* ctx, const void* rel_bias,
 }
 
 // The launches counted by launch_attn since the last reset, per kernel:
-// out (3 int64) = attn_fwd_kernel, attn_fwd_big_kernel, window_attn_kernel.
-// reset != 0 zeroes the counts after reading them.
+// out (2 int64) = attn_fwd_kernel, attn_fwd_big_kernel. reset != 0 zeroes
+// the counts after reading them.
 int lrce_attn_fwd_counts(void* out, int reset) {
   long long* o = static_cast<long long*>(out);
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 2; ++i) {
     o[i] = g_attn_counts[i];
     if (reset) g_attn_counts[i] = 0;
   }

@@ -35,7 +35,7 @@
 // each warp's share of the h1 area (a warp instruction moves 8 rows x 64
 // contiguous bytes): with 4-byte accesses in the accumulators' layout the
 // two took a seventh of the kernel's time (0.726 -> 0.628 ms at stage 0,
-// 48 clips, tools/piece_bench.py on an NVIDIA H100 80GB HBM3, 700.00 W).
+// 48 clips, timed alone on an NVIDIA H100 80GB HBM3, 700.00 W).
 // One thread of a producer warpgroup feeds a ring of stages (one stage =
 // one 64-deep k-block of Wp, 64 rows of W1 or 64 columns of W2: C x 128
 // bytes) with TMA copies completed on mbarriers, and the next tile's ctx
@@ -454,8 +454,8 @@ back_half_kernel(const __grid_constant__ CUtensorMap tm_ctx,
       wgmma_commit();
     };
     // fc2 must be done reading the hidden before the next fc1 writes it.
-    // Measured slower at stage 0, 48 clips (tools/piece_bench.py, NVIDIA
-    // H100 80GB HBM3, 700.00 W): two hidden buffers with the GELU of chunk f + 1 under fc2
+    // Measured slower at stage 0, 48 clips (timed alone, NVIDIA H100
+    // 80GB HBM3, 700.00 W): two hidden buffers with the GELU of chunk f + 1 under fc2
     // of chunk f (0.770 against 0.742 ms), and the two warpgroups taking
     // turns at the tensor cores section by section (0.666 against 0.628).
     float hid[32];

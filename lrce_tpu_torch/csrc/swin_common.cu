@@ -1,7 +1,6 @@
-// Kernels (a) LN + window gather, (b) window attention for the shapes that
-// attn_fwd.cu does not take, (c) the bf16 wgmma GEMM with epilogues, (d) the
-// split-K weight-gradient wgmma GEMM, and their launchers; see
-// swin_common.cuh.
+// Kernels (a) LN + window gather, (c) the bf16 wgmma GEMM with epilogues, (d)
+// the split-K weight-gradient wgmma GEMM, and their launchers; (b), the
+// window attention, is attn_fwd.cu's. See swin_common.cuh.
 #include "swin_common.cuh"
 
 #include "gemm_tile.cuh"
@@ -9,7 +8,6 @@
 
 #include <cudaTypedefs.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <chrono>
@@ -17,8 +15,6 @@
 
 namespace lrce {
 namespace {
-
-namespace wmma = nvcuda::wmma;
 
 #define LRCE_CHECK_LAUNCH()                     \
   do {                                          \
@@ -215,179 +211,6 @@ int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
 namespace {
 
 // ---------------------------------------------------------------------------
-// (b) Window attention for any head_dim that is a multiple of 16 and any
-// window whose tiles fit shared memory (head_dim 16 or 32 with at most 448
-// tokens runs attn_fwd_kernel or attn_fwd_big_kernel of attn_fwd.cu
-// instead: launch_attn chooses).
-// qkv: (nwin_total*N, 3C) bf16 in window order, packed
-// [q | k | v] with head h at columns h*hd. One CTA per (window, head):
-// q, k, v of the window sit in shared memory padded to Np = ceil16(N) rows.
-// Each warp takes 16 query rows at a time: S = q k^T (WMMA, f32) into its
-// own shared slab, + rel_bias[h] (+ mask of the window), f32 softmax with
-// the padded keys at -inf, P rounded to bf16, ctx = P v (WMMA, f32) rounded
-// to bf16. Padded query rows are never stored.
-// ---------------------------------------------------------------------------
-__global__ void window_attn_kernel(const bf16* __restrict__ qkv,
-                                   bf16* __restrict__ ctx,
-                                   const float* __restrict__ rel_bias,
-                                   const float* __restrict__ mask,
-                                   int N, int Np, int C, int hd,
-                                   int nwin_clip, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long win = blockIdx.x;
-  const int h = blockIdx.y;
-
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + Np * hd;
-  bf16* Vs = Ks + Np * hd;
-  unsigned char* wbase = reinterpret_cast<unsigned char*>(Vs + Np * hd) +
-                         (size_t)warp * (16 * Np * (sizeof(float) + sizeof(bf16)));
-  float* S = reinterpret_cast<float*>(wbase);
-  bf16* P = reinterpret_cast<bf16*>(S + 16 * Np);
-
-  // q, k, v rows of this (window, head): 8 bf16 (16 bytes) per load
-  const bf16* base = qkv + win * N * (3LL * C);
-  const int vecs_per_row = hd >> 3;
-  for (int idx = threadIdx.x; idx < Np * vecs_per_row; idx += blockDim.x) {
-    const int t = idx / vecs_per_row;
-    const int d0 = (idx % vecs_per_row) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0), kv = qv, vv = qv;
-    if (t < N) {
-      const bf16* row = base + (long long)t * 3 * C + h * hd + d0;
-      qv = *reinterpret_cast<const uint4*>(row);
-      kv = *reinterpret_cast<const uint4*>(row + C);
-      vv = *reinterpret_cast<const uint4*>(row + 2 * C);
-      bf16* qe = reinterpret_cast<bf16*>(&qv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        qe[e] = __float2bfloat16(__bfloat162float(qe[e]) * scale);
-    }
-    *reinterpret_cast<uint4*>(Qs + t * hd + d0) = qv;
-    *reinterpret_cast<uint4*>(Ks + t * hd + d0) = kv;
-    *reinterpret_cast<uint4*>(Vs + t * hd + d0) = vv;
-  }
-  __syncthreads();
-
-  const int nrb = Np >> 4;
-  const float* bias_h = rel_bias + (long long)h * N * N;
-  const float* mask_w =
-      mask ? mask + (long long)(win % nwin_clip) * N * N : nullptr;
-  for (int rb = warp; rb < nrb; rb += nwarps) {
-    // S = Q[rb] K^T
-    for (int cb = 0; cb < nrb; ++cb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < hd; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + rb * 16 * hd + kk, hd);
-        wmma::load_matrix_sync(b, Ks + cb * 16 * hd + kk, hd);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(S + cb * 16, acc, Np, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    for (int i = 0; i < 16; ++i) {
-      const int qi = rb * 16 + i;
-      float* srow = S + i * Np;
-      bf16* prow = P + i * Np;
-      if (qi >= N) {
-        for (int j = lane; j < Np; j += 32) prow[j] = __float2bfloat16(0.f);
-        continue;
-      }
-      const float* brow = bias_h + (long long)qi * N;
-      const float* mrow = mask_w ? mask_w + (long long)qi * N : nullptr;
-      float mx = -INFINITY;
-      for (int j = lane; j < Np; j += 32) {
-        float l = -INFINITY;
-        if (j < N) l = srow[j] + (mrow ? brow[j] + mrow[j] : brow[j]);
-        srow[j] = l;
-        mx = fmaxf(mx, l);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < Np; j += 32) {
-        float e = j < N ? expf(srow[j] - mx) : 0.f;
-        srow[j] = e;
-        sum += e;
-      }
-      const float r = 1.f / warp_sum(sum);
-      for (int j = lane; j < Np; j += 32)
-        prow[j] = __float2bfloat16(srow[j] * r);
-    }
-    __syncwarp();
-
-    // ctx = P V, 16 x hd, staged through S (ld = hd)
-    for (int db = 0; db < hd; db += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < Np; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, P + kk, Np);
-        wmma::load_matrix_sync(b, Vs + kk * hd + db, hd);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(S + db, acc, hd, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int e = lane; e < 16 * hd; e += 32) {
-      const int i = e / hd, d = e % hd;
-      const int qi = rb * 16 + i;
-      if (qi < N)
-        ctx[(win * N + qi) * C + h * hd + d] = __float2bfloat16(S[i * hd + d]);
-    }
-    __syncwarp();
-  }
-}
-
-// Shared-memory bytes for nwarps warps, and the warp count launched: as
-// many as fit about half an SM (two CTAs resident per SM), at least one.
-size_t attn_smem_bytes(int Np, int hd, int nwarps) {
-  return (size_t)3 * Np * hd * sizeof(bf16) +
-         (size_t)nwarps * 16 * Np * (sizeof(float) + sizeof(bf16));
-}
-
-int attn_warps(int Np, int hd) {
-  const size_t fixed = attn_smem_bytes(Np, hd, 0);
-  const size_t per = attn_smem_bytes(Np, hd, 1) - fixed;
-  const size_t half = 110 * 1024;
-  int w = half > fixed ? (int)((half - fixed) / per) : 0;
-  if (w < 1) w = 1;
-  if (w > Np / 16) w = Np / 16;
-  return w;
-}
-
-}  // namespace
-
-int launch_attn_wmma(const bf16* qkv, bf16* ctx, const float* rel_bias,
-                     const float* mask, long long nwin_total, int nwin_clip,
-                     int N, int C, int num_heads, cudaStream_t stream) {
-  const int hd = C / num_heads;
-  const int Np = (N + 15) / 16 * 16;
-  if (hd % 16 != 0 || hd > Np) return (int)cudaErrorInvalidValue;
-  const int nwarps = attn_warps(Np, hd);
-  const size_t smem = attn_smem_bytes(Np, hd, nwarps);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)nwin_total, num_heads);
-  window_attn_kernel<<<grid, nwarps * 32, smem, stream>>>(
-      qkv, ctx, rel_bias, mask, N, Np, C, hd, nwin_clip,
-      1.f / sqrtf((float)hd));
-  LRCE_CHECK_LAUNCH();
-  return 0;
-}
-
-namespace {
-
-// ---------------------------------------------------------------------------
 // (c) GEMM: out = epilogue(A (M x K, row-major) . B), bf16 in, f32
 // accumulate in registers through wgmma (m64n128k16). B is either W (N x K,
 // row-major, the nn.Linear layout: out = A . W^T) or, with kBkn, a (K x N)
@@ -404,7 +227,7 @@ namespace {
 // and output move as 16-byte accesses and a warp instruction covers
 // 64-byte row segments. Its global loads are latency-bound; ping-pong hides
 // them under the other consumer's products. What was measured on the way
-// (tools/piece_bench.py, an NVIDIA H100 80GB HBM3, 700.00 W): both on
+// (timed alone on an NVIDIA H100 80GB HBM3, 700.00 W): both on
 // one 128-row tile ran 10-45% slower than the PR-4 kernel (cp.async by all
 // 256 threads of two CTAs per SM, a CTA-wide barrier on every k-tile);
 // 16-byte cp.async issued by a producer warpgroup of 128 threads instead

@@ -7,8 +7,7 @@
 //       tokens a CTA per (window group, head) on mma.sync with S and P in
 //       registers, for 161-448 tokens a CTA per (window group, head, 80
 //       query rows, 64 past 400 tokens) that streams the keys
-//       (attn_fwd.cu); for other shapes
-//       one WMMA CTA per (window, head) (swin_common.cu);
+//       (attn_fwd.cu); no other shape;
 //   (c) a bf16 tensor-core GEMM (a persistent, warp-specialised CTA: TMA
 //       into a ring of stages, two consumer warpgroups on wgmma in turns,
 //       f32 accumulate in registers), out = A . W^T or A . B, with epilogues
@@ -29,7 +28,8 @@
 // in f32 before the final rounding.
 //
 // Every kernel is launched on the caller's stream and allocates nothing;
-// the kernels themselves are in swin_common.cu.
+// the kernels of (a), (c) and (d) are in swin_common.cu, those of (b) in
+// attn_fwd.cu.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
@@ -139,13 +139,6 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-static __device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory per CTA
 
 // A TMA tensor map of a row-major bf16 matrix (rows x cols, row stride ld
@@ -174,15 +167,12 @@ int launch_ln(const bf16* x, bf16* out, const float* gamma, const float* beta,
 //     in mask_off[w] says that w's mask is not of that form and is read as
 //     it lies. Both null: every window reads the dense mask. groups: window
 //     groups of the grid of attn_fwd_kernel or attn_fwd_big_kernel, 1 ..
-//     nwin_total (unused where the shape takes launch_attn_wmma, see
-//     attn_fwd.cu).
+//     nwin_total. Takes head_dim 16 or 32 and windows of at most 448
+//     tokens (see attn_fwd.cu); other shapes give cudaErrorInvalidValue.
 int launch_attn(const bf16* qkv, bf16* ctx, const float* rel_bias,
                 const float* mask, const int* mask_labels,
                 const float* mask_off, long long nwin_total, int nwin_clip,
                 int N, int C, int num_heads, int groups, cudaStream_t stream);
-int launch_attn_wmma(const bf16* qkv, bf16* ctx, const float* rel_bias,
-                     const float* mask, long long nwin_total, int nwin_clip,
-                     int N, int C, int num_heads, cudaStream_t stream);
 // (c) out = epilogue(A (M x K) . W^T) with Bm = W (N x K), or, with b_kn
 //     (EPI_ATTN_OUT only), epilogue(A . Bm) with Bm (K x N); all row-major,
 //     K % 8 == 0, N % 8 == 0.

@@ -19,7 +19,6 @@ import torch
 from torch import nn
 
 from lrce_tpu_torch.ops.nn import LayerNorm, Linear, dropout, gelu
-from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp
 from lrce_tpu_torch.utils.graphs import GraphCache
 
 LN_EPS = 1e-12
@@ -77,17 +76,14 @@ class BertSelfAttention(nn.Module):
         self.query = _linear(d, d, dtype, generator)
         self.key = _linear(d, d, dtype, generator)
         self.value = _linear(d, d, dtype, generator)
-        self.tp_group = None    # tensor parallelism: this rank's heads only
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 training: bool = False, generator=None) -> torch.Tensor:
-        """(B, S, D) -> (B, S, num_heads * head_dim): all heads on one card,
-        this rank's heads under tensor parallelism (the output projection
-        after it sums over the group)."""
+        """(B, S, D) -> (B, S, num_heads * head_dim), the heads of the
+        query / key / value rows this module holds."""
         b, s, _ = x.shape
         d = self.query.weight.shape[0]
         hd = d // self.num_heads
-        x = copy_to_tp(x, self.tp_group)
 
         def heads(t):
             return t.reshape(b, s, self.num_heads, hd).transpose(1, 2)
@@ -142,12 +138,11 @@ class BertLayer(nn.Module):
         self.attention = BertAttention(cfg, dtype, generator)
         self.intermediate = BertIntermediate(cfg, dtype, generator)
         self.output = BertOutput(cfg, dtype, generator)
-        self.tp_group = None    # tensor parallelism: this rank's hidden
 
     def forward(self, x, bias, rate: float = 0.0, training: bool = False,
                 generator=None):
         x = self.attention(x, bias, rate, training, generator)
-        h = gelu(self.intermediate.dense(copy_to_tp(x, self.tp_group)))
+        h = gelu(self.intermediate.dense(x))
         h = dropout(self.output.dense(h), rate, training, generator)
         return self.output.LayerNorm(x + h)
 

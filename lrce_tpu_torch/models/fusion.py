@@ -26,7 +26,6 @@ from torch import nn
 from lrce_tpu_torch.models.embedding import TextPosEmbed, VideoPosEmbed, xavier_normal
 from lrce_tpu_torch.ops.nn import (LayerNorm, Linear, MultiheadAttention,
                                    dropout, gelu)
-from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp
 from lrce_tpu_torch.utils import trace
 from lrce_tpu_torch.utils.graphs import GraphCache
 
@@ -50,7 +49,6 @@ class DecoderLayer(nn.Module):
         self.norm1 = LayerNorm(dim, LN_EPS)
         self.norm2 = LayerNorm(dim, LN_EPS)
         self.norm3 = LayerNorm(dim, LN_EPS)
-        self.tp_group = None    # tensor parallelism: this rank's hidden
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 rate: float = 0.0, training: bool = False,
@@ -61,7 +59,7 @@ class DecoderLayer(nn.Module):
         kw = dict(dropout_rate=rate, training=training, generator=generator)
         x = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, **kw)))
         x = self.norm2(x + drop(self.multihead_attn(x, memory, memory, **kw)))
-        h = drop(gelu(self.linear1(copy_to_tp(x, self.tp_group))))
+        h = drop(gelu(self.linear1(x)))
         return self.norm3(x + drop(self.linear2(h)))
 
 

@@ -20,9 +20,9 @@ Two routes through a stage, chosen by ``SwinTransformer3D.use_kernels``:
     1024), else the plain version at K7's rounding points, and its
     backward K5 at every width. Stages that need padding, or whose
     windows or width no kernel takes (``window_kernels_supported``: C <=
-    1536, windows of at most 448 tokens with grad mode on; Swin-L's
-    unclamped (8, 12, 12) window, N = 1152, in either mode), take the plain
-    block;
+    1536, head_dim 16 or 32 and windows of at most 448 tokens, in either
+    grad mode; not Swin-L's unclamped (8, 12, 12) window, N = 1152), take
+    the plain block;
   - plain: every block is ``swin_block``, the JAX package's XLA path (pad,
     roll, partition, attention, reverse, unroll, crop, MLP).
 On a CPU tensor a kernel wrapper runs its own plain version, so both
@@ -341,14 +341,13 @@ class BasicLayer(nn.Module):
         mask = consts.shift_mask(dims, window, shift, x.device) if shifted else None
         aligned = dims == (d, h, w)
         # The route is chosen by shape before any launch, never by catching
-        # a kernel's refusal: the kernels need window-aligned stages, a width
-        # and a window that a forward CTA takes, and with grad mode on K4,
-        # which takes windows of at most 448 tokens at head_dim 16 or 32
-        # (16-frame clips of Swin-B give N = 392 and Swin-L at 384 N = 432,
-        # both of which train on the kernels; a wider head dim, or Swin-L's
-        # unclamped window of 1152 tokens, takes the plain block).
+        # a kernel's refusal: the kernels need window-aligned stages and a
+        # width and a window that they take, windows of at most 448 tokens at
+        # head_dim 16 or 32 (16-frame clips of Swin-B give N = 392 and
+        # Swin-L at 384 N = 432, both on the kernels; a wider head dim, or
+        # Swin-L's unclamped window of 1152 tokens, takes the plain block).
         kernels = use_kernels and aligned and window_kernels_supported(
-            n, c, self.num_heads, torch.is_grad_enabled())
+            n, c, self.num_heads)
         # blocks wider than BLOCK_KERNEL_MAX_C run K2, then LN2 + MLP
         # through ``fused_ln_mlp``: K7 forward where K7 takes the width
         k7 = ln_mlp_supported(c, self.blocks[0].mlp.fc1.weight.shape[0])

@@ -24,8 +24,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from lrce_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_from_tp
-
 
 # XLA's f32 erf, the rational approximation the reference kernels compute
 # (``_erf_f32`` of lrce_tpu/ops/pallas_mlp.py): the port's own copy of the
@@ -134,12 +132,10 @@ def matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,
-          bias: Optional[torch.Tensor] = None,
-          reduce_group=None) -> torch.Tensor:
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ weight.T (+ bias) in f32, rounded once to x's dtype; weight is
-    (out, in). With ``reduce_group`` (a row-parallel product) the f32
-    product is summed over the tensor-parallel group before the bias."""
-    y = reduce_from_tp(matmul_f32(x, weight), reduce_group)
+    (out, in)."""
+    y = matmul_f32(x, weight)
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
@@ -197,27 +193,27 @@ def mha(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
         out_weight: torch.Tensor, out_bias: torch.Tensor, num_heads: int,
         mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
         training: bool = False,
-        generator: Optional[torch.Generator] = None,
-        tp_group=None) -> torch.Tensor:
-    """Batch-first multi-head attention (B, S, D).
+        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Batch-first multi-head attention (B, S, D): ``mha_heads`` and the
+    output projection (out_weight (D, D), out_bias (D,)).
 
     in_proj_weight: (3D, D) packed [q; k; v] rows, as in
     torch.nn.MultiheadAttention. mask: additive, broadcastable to
     (B, H, Sq, Sk), or a boolean (B, Sk) key mask (True = keep). In
     training the f32 attention weights take dropout, as in the JAX ``mha``.
-    With ``tp_group`` the weights are this rank's heads (``num_heads`` of
-    them: (3 D', D) packed rows and (D, D') output columns,
-    ``parallel/tensor_parallel.py``) and the output is summed over the group.
     """
-    if tp_group is not None:
-        copies = {}     # one copy per distinct input: one all-reduce each
+    return dense(mha_heads(query, key, value, in_proj_weight, in_proj_bias,
+                           num_heads, mask, dropout_rate, training,
+                           generator), out_weight, out_bias)
 
-        def copied(t):
-            if id(t) not in copies:
-                copies[id(t)] = copy_to_tp(t, tp_group)
-            return copies[id(t)]
 
-        query, key, value = copied(query), copied(key), copied(value)
+def mha_heads(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+              in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
+              num_heads: int, mask: Optional[torch.Tensor] = None,
+              dropout_rate: float = 0.0, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``mha`` up to the output projection: the ``num_heads`` heads of
+    ``in_proj_weight`` ((3 D', D) packed rows) side by side, (B, Sq, D')."""
     dim = in_proj_weight.shape[0] // 3
     hd = dim // num_heads
     w = in_proj_weight
@@ -238,8 +234,7 @@ def mha(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                       generator)
     ctx = torch.matmul(weights.to(q.dtype).float(), v.float()).to(q.dtype)
     b, h, s, _ = ctx.shape
-    ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
-    return dense(ctx, out_weight, out_bias, tp_group)
+    return ctx.transpose(1, 2).reshape(b, s, h * hd)
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +271,9 @@ class Linear(nn.Module):
             raise ValueError(init)
         self.weight = nn.Parameter(w.to(dtype))
         self.bias = nn.Parameter(b) if bias else None
-        self.reduce_group = None        # row-parallel: see ``dense``
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias, self.reduce_group)
+        return dense(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
@@ -307,11 +301,10 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = Linear(dim, dim, dtype=dtype, generator=generator)
         nn.init.zeros_(self.out_proj.bias)
-        self.tp_group = None        # tensor parallelism: this rank's heads
 
     def forward(self, query, key, value, mask=None, dropout_rate=0.0,
                 training=False, generator=None):
-        return mha(query, key, value, self.in_proj_weight, self.in_proj_bias,
-                   self.out_proj.weight, self.out_proj.bias, self.num_heads,
-                   mask=mask, dropout_rate=dropout_rate, training=training,
-                   generator=generator, tp_group=self.tp_group)
+        return self.out_proj(mha_heads(query, key, value, self.in_proj_weight,
+                                       self.in_proj_bias, self.num_heads,
+                                       mask, dropout_rate, training,
+                                       generator))

@@ -55,6 +55,7 @@ from lrce_tpu_torch.ops.window_attn import (NO_SHIFT, Shift, Window,
                                             attention_proj_f32, attention_vjp,
                                             attn_fwd_launch_groups,
                                             check_attention_shapes,
+                                            check_attn_shape,
                                             check_kernel_args, check_shift,
                                             expect_shape,
                                             fused_window_attention,
@@ -549,6 +550,8 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
     if ff % 8:
         raise ValueError(f"{name}: MLP width {ff} is not a multiple of 8")
     check_shift(name, x, shift)
+    n = window[0] * window[1] * window[2]
+    check_attn_shape(name, n, c // num_heads)
     t = b * d * h * w
     out = torch.empty_like(x)
     # the back half in one launch (h1 and the hidden on chip) where its
@@ -563,7 +566,6 @@ def _one_block(counted, x, shift, wts, mask, dp1, dp2, window, num_heads,
                                               device=x.device))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     labels, off = mask_label_args(mask)
-    n = window[0] * window[1] * window[2]
     rc = cuda_lib.library().lib.lrce_swin_block_fwd(
         x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift,
         num_heads, ff, ln_eps, *(ptr(t) for t in (

@@ -350,14 +350,13 @@ def attn_fwd_groups(nwin_total: int, num_heads: int, sms: int) -> int:
     return attn_bwd_groups(nwin_total, num_heads, sms)
 
 
+ATTN_MAX_TOKENS = 448        # the widest window of every attention kernel
 ATTN_FWD_SMALL_TOKENS = 160  # attn_fwd_kernel: twenty 8-key blocks at most
-ATTN_FWD_MAX_TOKENS = 448    # attn_fwd_big_kernel
 ATTN_FWD_BLOCK_ROWS = 80     # query rows of one attn_fwd_big_kernel CTA
 ATTN_FWD_WIDE_TOKENS = 400   # past it, CTAs of ATTN_FWD_WIDE_BLOCK_ROWS rows
 ATTN_FWD_WIDE_BLOCK_ROWS = 64
 ATTN_FWD_KEY_SPLITS = 2      # its warp sets, one per half of the keys
-ATTN_FWD_CTAS = ("attn_fwd_kernel", "attn_fwd_big_kernel",
-                 "window_attn_kernel")
+ATTN_FWD_CTAS = ("attn_fwd_kernel", "attn_fwd_big_kernel")
 SMEM_PER_CTA = 227 * 1024    # dynamic shared memory a CTA may take (kMaxSmem)
 
 
@@ -365,38 +364,35 @@ def _padded(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def attn_fwd_cta(n: int, head_dim: int) -> str:
+def attn_supported(n: int, head_dim: int) -> bool:
+    """Whether the window-attention kernels take windows of n tokens at
+    this head_dim: head_dim 16 or 32 and at most 448 tokens (a multiple of
+    16, so padding does not change the answer). The forward CTAs
+    (``attn_fwd_cta``) and K4 take the same shapes. Every kernel wrapper
+    (``check_attn_shape``) and the Swin stage's choice of route read this
+    one rule; Video Swin's unclamped (8, 12, 12) window (N = 1152) and a
+    head_dim of 48 or 64 take the plain block."""
+    return n <= ATTN_MAX_TOKENS and head_dim in (16, 32)
+
+
+def check_attn_shape(name: str, n: int, head_dim: int) -> None:
+    """Raise before any launch where ``attn_supported`` says no."""
+    if not attn_supported(n, head_dim):
+        raise ValueError(f"{name}: takes windows of at most "
+                         f"{ATTN_MAX_TOKENS} tokens and head_dim 16 or 32, "
+                         f"got {n} and {head_dim}")
+
+
+def attn_fwd_cta(n: int, head_dim: int) -> Optional[str]:
     """The CTA that ``launch_attn`` (``csrc/attn_fwd.cu``) gives windows of
-    n tokens at this head_dim: ``attn_fwd_kernel`` for head_dim 16 / 32 and
-    n <= 160 (padded to 16), ``attn_fwd_big_kernel`` for 161-448, the WMMA
-    ``window_attn_kernel`` for the rest (head_dim 48, 64, ...; more than 448
-    tokens)."""
-    padded = _padded(n)
-    if head_dim not in (16, 32) or padded > ATTN_FWD_MAX_TOKENS:
-        return "window_attn_kernel"
-    if padded <= ATTN_FWD_SMALL_TOKENS:
+    n tokens at this head_dim: ``attn_fwd_kernel`` up to 160 tokens (padded
+    to 16), ``attn_fwd_big_kernel`` for 161-448; None for a shape that
+    ``attn_supported`` refuses."""
+    if not attn_supported(n, head_dim):
+        return None
+    if _padded(n) <= ATTN_FWD_SMALL_TOKENS:
         return "attn_fwd_kernel"
     return "attn_fwd_big_kernel"
-
-
-def wmma_attn_smem_bytes(n: int, head_dim: int) -> int:
-    """Shared memory of the WMMA CTA with one warp (``attn_smem_bytes`` in
-    ``csrc/swin_common.cu``): q, k, v of the window and one warp's 16 rows
-    of f32 S and bf16 P."""
-    npad = _padded(n)
-    return 3 * npad * head_dim * 2 + 16 * npad * (4 + 2)
-
-
-def attn_fwd_supported(n: int, head_dim: int) -> bool:
-    """Whether some forward attention CTA takes windows of n tokens at
-    this head_dim: the two ``mma.sync`` CTAs, or the WMMA CTA where its
-    tiles fit shared memory. Video Swin's unclamped (8, 12, 12) window (N =
-    1152, 16 frames or more at 384) does not: its stages take the plain
-    block."""
-    if head_dim % 16:
-        return False
-    return (attn_fwd_cta(n, head_dim) != "window_attn_kernel"
-            or wmma_attn_smem_bytes(n, head_dim) <= SMEM_PER_CTA)
 
 
 def attn_fwd_block_rows(n: int) -> int:
@@ -445,9 +441,8 @@ def attn_fwd_big_groups(nwin_total: int, num_heads: int, sms: int,
 def attn_fwd_launch_groups(nwin_total: int, n: int, head_dim: int,
                            num_heads: int, sms: int) -> int:
     """The ``groups`` argument of a forward attention launch: the grid of
-    the CTA that ``attn_fwd_cta`` names (unused by the WMMA CTA)."""
-    cta = attn_fwd_cta(n, head_dim)
-    if cta == "attn_fwd_big_kernel":
+    the CTA that ``attn_fwd_cta`` names."""
+    if attn_fwd_cta(n, head_dim) == "attn_fwd_big_kernel":
         return attn_fwd_big_groups(nwin_total, num_heads, sms,
                                    attn_fwd_blocks(n))
     return attn_fwd_groups(nwin_total, num_heads, sms)
@@ -459,7 +454,7 @@ def attn_fwd_cta_launches(reset: bool = False) -> dict:
     them. Needs the built library, so the card's machine."""
     import ctypes
 
-    out = (ctypes.c_longlong * 3)()
+    out = (ctypes.c_longlong * len(ATTN_FWD_CTAS))()
     cuda_lib.check("lrce_attn_fwd_counts",
                    cuda_lib.library().lib.lrce_attn_fwd_counts(
                        ctypes.addressof(out), int(reset)))
@@ -492,10 +487,10 @@ def window_attention_core(qkv: torch.Tensor, rel_bias: torch.Tensor,
     qkv: (windows, N, 3C); rel_bias: (nH, N, N) f32; mask: (..., N, N) f32,
     one per window of a clip (windows a multiple of their count), or None.
     Returns ctx (windows, N, C). On CUDA: qkv bf16, everything contiguous,
-    head_dim a multiple of 16; head_dim 16 or 32 with N <= 448 runs an
-    ``mma.sync`` CTA of ``csrc/attn_fwd.cu`` (``attn_fwd_kernel`` up to 160
-    tokens, ``attn_fwd_big_kernel`` beyond), other shapes the WMMA CTA of
-    ``csrc/swin_common.cu`` (``attn_fwd_cta``)."""
+    head_dim 16 or 32 and N <= 448 (``attn_supported``), which run an
+    ``mma.sync`` CTA of ``csrc/attn_fwd.cu`` (``attn_fwd_cta``:
+    ``attn_fwd_kernel`` up to 160 tokens, ``attn_fwd_big_kernel``
+    beyond)."""
     name = "window_attention_core"
     _check_core_shapes(name, qkv, rel_bias, mask, num_heads)
     if qkv.device.type == "cpu":
@@ -516,9 +511,7 @@ def window_attention_core(qkv: torch.Tensor, rel_bias: torch.Tensor,
                              f"{qkv.device}")
     nwin, n, c3 = qkv.shape
     c = c3 // 3
-    if (c // num_heads) % 16:
-        raise ValueError(f"{name}: head_dim {c // num_heads} is not a "
-                         "multiple of 16")
+    check_attn_shape(name, n, c // num_heads)
     nwin_clip = nwin if mask is None else mask.numel() // (n * n)
     labels, off = mask_label_args(mask)
     ctx = torch.empty((nwin, n, c), dtype=qkv.dtype, device=qkv.device)
@@ -548,12 +541,13 @@ def _attention_fwd_kernel(name, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
     expect_shape(name, ln_scale, (c,))
     expect_shape(name, ln_bias, (c,))
     check_shift(name, x, shift)
+    n = window[0] * window[1] * window[2]
+    check_attn_shape(name, n, c // num_heads)
     t = b * d * h * w
     out = torch.empty_like(x)
     ws_tc = torch.empty((t, c), dtype=x.dtype, device=x.device)
     ws_qkv = torch.empty((t, 3 * c), dtype=x.dtype, device=x.device)
     labels, off = mask_label_args(mask)
-    n = window[0] * window[1] * window[2]
     rc = cuda_lib.library().lib.lrce_window_attn_fwd(
         x.data_ptr(), out.data_ptr(), b, d, h, w, c, *window, *shift,
         num_heads, ln_eps, ln_scale.data_ptr(), ln_bias.data_ptr(),
@@ -578,32 +572,18 @@ def sm_count(x: torch.Tensor) -> int:
 
 
 ATTN_BWD_SMALL_TOKENS = 160  # attn_bwd_kernel: ten 16-row key blocks at most
-ATTN_BWD_MAX_TOKENS = 448    # the rows / columns pair: 28 blocks of 16
 ATTN_BWD_BLOCK_ROWS = 80     # query rows / keys of one of the pair's CTAs
 ATTN_BWD_PAIR_CTAS = 16      # the pair's CTAs an SM over a call, about
 
 
-def attn_bwd_supported(n: int, head_dim: int) -> bool:
-    """Whether K4 (``window_attention_bwd`` on CUDA) takes windows of n
-    tokens at this head_dim: attn_bwd_kernel takes up to 160 (padded to 16),
-    the rows / columns pair up to 448. Its wrapper and the Swin stage's
-    choice of route read this one rule."""
-    return n <= ATTN_BWD_MAX_TOKENS and head_dim in (16, 32)
-
-
-def window_kernels_supported(n: int, c: int, num_heads: int,
-                             grad: bool) -> bool:
+def window_kernels_supported(n: int, c: int, num_heads: int) -> bool:
     """Whether a window-aligned Swin stage of windows of n tokens, C
-    channels and ``num_heads`` heads runs on the kernels: its width
-    (``kernel_width_supported``), a forward CTA for its windows
-    (``attn_fwd_supported``) and, with ``grad``, K4
-    (``attn_bwd_supported``). The route is chosen by this rule before any
+    channels and ``num_heads`` heads runs on the kernels, forward and
+    backward alike: its width (``kernel_width_supported``) and its windows
+    (``attn_supported``). The route is chosen by this rule before any
     launch, so that no stage reaches a kernel that refuses it."""
-    if not kernel_width_supported(c, num_heads):
-        return False
-    hd = c // num_heads
-    return attn_fwd_supported(n, hd) and (not grad
-                                          or attn_bwd_supported(n, hd))
+    return (kernel_width_supported(c, num_heads)
+            and attn_supported(n, c // num_heads))
 
 
 def attn_bwd_blocks(n: int) -> int:
@@ -672,10 +652,7 @@ def _window_attention_bwd_kernel(x, g, ln_scale, ln_bias, qkv_w, qkv_b,
     expect_shape(name, g, x.shape)
     check_shift(name, x, shift)
     n = window[0] * window[1] * window[2]
-    if not attn_bwd_supported(n, c // num_heads):
-        raise ValueError(f"{name}: takes windows of at most "
-                         f"{ATTN_BWD_MAX_TOKENS} tokens and head_dim 16 or "
-                         f"32, got {n} and {c // num_heads}")
+    check_attn_shape(name, n, c // num_heads)
     t = b * d * h * w
     sms = sm_count(x)
     blocks = attn_bwd_blocks(n)

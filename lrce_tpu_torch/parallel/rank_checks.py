@@ -90,7 +90,8 @@ def agent_run(device: torch.device, cfg, state, batches, fsdp: int,
             from lrce_tpu_torch.utils.pytree import l2_reg
 
             with torch.no_grad():
-                seen.append(float(l2_reg(agent.reg_groups)))
+                seen.append(float(l2_reg(agent.reg_groups,
+                                         agent.reg_split)))
         elif op[0] == "snapshot":
             snapshots.append(_whole(agent))
         elif op[0] == "fresh":

@@ -96,11 +96,14 @@ def param_specs(model: nn.Module, fsdp: int = 1, n_model: int = 1
 
 class Sharded(NamedTuple):
     """A model made ready for its layout: ``net`` is what the forward calls
-    (the DDP wrapper, or the model itself), and ``manual`` the parameters
+    (the DDP wrapper, or the model itself), ``manual`` the parameters
     whose gradients ``sync_manual_grads`` averages over the batch ranks
-    (those neither DDP nor FSDP reduces)."""
+    (those neither DDP nor FSDP reduces), and ``split`` the process groups
+    over which each tensor-parallel piece lies, by the parameter's id
+    (``utils/pytree.l2_reg``'s ``split``)."""
     net: nn.Module
     manual: list
+    split: dict
 
 
 def shard_model(model: nn.Module, layout, train: bool = True) -> Sharded:
@@ -108,12 +111,13 @@ def shard_model(model: nn.Module, layout, train: bool = True) -> Sharded:
     rank) ready for ``layout`` (``parallel/mesh.Layout``), in place. An
     evaluation (``train`` False) needs no DDP: nothing is reduced."""
     specs = param_specs(model, layout.n_fsdp, layout.n_model)
+    split = {}
     if layout.n_model > 1:
-        shard_tensor_parallel(model, layout.model_rank, layout.n_model,
-                              layout.tp_group)
+        split = shard_tensor_parallel(model, layout.model_rank,
+                                      layout.n_model, layout.tp_group)
     if layout.n_fsdp == 1:
         if layout.batch_group is None or not train:
-            return Sharded(model, [])
+            return Sharded(model, [], split)
         from torch.nn.parallel import DistributedDataParallel as DDP
 
         # the pooler gets no gradient from the loss (the forward does not
@@ -123,7 +127,7 @@ def shard_model(model: nn.Module, layout, train: bool = True) -> Sharded:
         device = next(model.parameters()).device
         net = DDP(model, process_group=layout.batch_group,
                   device_ids=[device] if device.type == "cuda" else None)
-        return Sharded(net, [])
+        return Sharded(net, [], split)
 
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
@@ -151,7 +155,7 @@ def shard_model(model: nn.Module, layout, train: bool = True) -> Sharded:
                     reshard_after_forward=True, ignored_params=own or None)
     manual = [p for name, p in model.named_parameters()
               if name.startswith("video_extractor") or p in ignored]
-    return Sharded(model, manual)
+    return Sharded(model, manual, split)
 
 
 def sync_manual_grads(params, group, n: int) -> None:

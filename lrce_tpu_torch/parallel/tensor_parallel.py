@@ -8,9 +8,14 @@ carry the collectives:
   - ``copy_to_tp``: identity forward, all-reduce backward, on the input of
     a column-parallel product (each rank's heads add their part of the
     input's gradient);
-  - ``reduce_from_tp``: all-reduce forward, identity backward, on the f32
-    partial product of a row-parallel product, before its bias is added and
-    the sum rounded once, as the one-card ``dense`` rounds.
+  - ``utils/pytree.sum_over``: all-reduce forward, identity backward, on
+    the f32 partial product of a row-parallel product, before its bias is
+    added and the sum rounded once, as the one-card ``dense`` rounds.
+
+``shard_tensor_parallel`` puts them on an unchanged model from outside: a
+forward pre-hook copies the input of each module that starts a
+column-parallel product, and ``RowParallelLinear`` takes the place of each
+row-parallel ``Linear``. The layers below ``parallel/`` know nothing of it.
 
 ``torch.distributed.tensor.parallel.parallelize_module`` is not used: its
 column / row styles take ``nn.Linear`` and ``nn.Embedding`` only, and the
@@ -22,11 +27,14 @@ would give rank 0 all of q and part of k).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from lrce_tpu_torch.ops import nn as NN
+from lrce_tpu_torch.utils.pytree import sum_over
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -42,27 +50,28 @@ class _CopyToTP(torch.autograd.Function):
         return g, None
 
 
-class _ReduceFromTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
     """x, whose gradient is summed over ``group`` (None: x itself)."""
     return x if group is None else _CopyToTP.apply(x, group)
 
 
-def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of x over ``group``, whose gradient passes through (None: x
-    itself)."""
-    return x if group is None else _ReduceFromTP.apply(x, group)
+class RowParallelLinear(NN.Linear):
+    """A row-parallel ``Linear``: ``weight`` holds this rank's input
+    columns; the f32 partial product is summed over ``group`` before the
+    (replicated) bias is added and the sum rounded once, as ``NN.dense``
+    rounds on one card. Takes the parameters of ``linear`` as they are, so
+    the state-dict names stay."""
+
+    def __init__(self, linear: NN.Linear, group):
+        nn.Module.__init__(self)
+        self.weight, self.bias = linear.weight, linear.bias
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = sum_over(NN.matmul_f32(x, self.weight), self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -136,41 +145,79 @@ def tp_gather(name: str, local: torch.Tensor, group) -> torch.Tensor:
 # Turning a model tensor-parallel
 # ---------------------------------------------------------------------------
 
-def shard_tensor_parallel(model: nn.Module, rank: int, n: int, group) -> None:
+def _copy_inputs(group, count: int):
+    """A forward pre-hook that hands the module ``copy_to_tp`` of its first
+    ``count`` positional inputs, one copy per distinct input (a query, key
+    and value that are one tensor share one backward all-reduce)."""
+    def hook(module, args):
+        copies = {}
+        for t in args[:count]:
+            if id(t) not in copies:
+                copies[id(t)] = copy_to_tp(t, group)
+        return tuple(copies[id(t)] for t in args[:count]) + args[count:]
+    return hook
+
+
+def _column_entries(model: nn.Module):
+    """(name, module, inputs) of each module whose input starts a
+    column-parallel product, with the count of its leading positional
+    inputs that the product reads: query, key and value of every fusion
+    attention, the hidden states of every BERT attention, and the input of
+    the first feed-forward product of every BERT and fusion layer."""
+    from lrce_tpu_torch.models import bert as B
+    from lrce_tpu_torch.models import fusion as F
+
+    for name, module in model.named_modules():
+        if isinstance(module, NN.MultiheadAttention):
+            yield name, module, 3
+        elif isinstance(module, B.BertSelfAttention):
+            yield name, module, 1
+        elif isinstance(module, B.BertLayer):
+            yield f"{name}.intermediate.dense", module.intermediate.dense, 1
+        elif isinstance(module, F.DecoderLayer):
+            yield f"{name}.linear1", module.linear1, 1
+
+
+def shard_tensor_parallel(model: nn.Module, rank: int, n: int,
+                          group) -> Dict[int, tuple]:
     """Split the BERT layers and the fusion decoder layers of ``model`` (an
     ``LRCEModel``) over the tensor-parallel ``group`` of ``n`` ranks, in
     place: rank ``rank`` keeps heads [rank H / n, (rank + 1) H / n) of every
-    attention and the same share of every feed-forward hidden. The modules
-    that start a column-parallel product get ``tp_group`` (they copy their
-    input into it), the row-parallel ``Linear``s ``reduce_group``, and each
-    split parameter carries its group as ``tp_group`` (``utils/pytree.l2_reg``
-    sums its square over it). Raises when the heads or the hidden do not
-    divide by n."""
-    from lrce_tpu_torch.models import bert as B
-    from lrce_tpu_torch.models import fusion as F
-    from lrce_tpu_torch.ops import nn as NN
-
-    for name, module in list(model.named_modules()):
-        if isinstance(module, (NN.MultiheadAttention, B.BertSelfAttention)):
-            if module.num_heads % n:
-                raise ValueError(f"{name}: {module.num_heads} heads do not "
-                                 f"split over {n} tensor-parallel ranks")
-            module.num_heads //= n
-            module.tp_group = group
-        if isinstance(module, (B.BertLayer, F.DecoderLayer)):
-            ff = (module.intermediate.dense if isinstance(module, B.BertLayer)
-                  else module.linear1).weight.shape[0]
-            if ff % n:
-                raise ValueError(f"{name}: a hidden of {ff} does not split "
+    attention and the same share of every feed-forward hidden. Each module
+    that starts a column-parallel product copies its input into the group
+    (a forward pre-hook), and each row-parallel ``Linear`` becomes a
+    ``RowParallelLinear``. Returns the process groups of each split
+    parameter, by its id (``utils/pytree.l2_reg`` sums its square over
+    them). Raises when the heads or the hidden do not divide by n."""
+    entries = list(_column_entries(model))
+    for name, module, _ in entries:
+        if isinstance(module, NN.Linear):
+            if module.weight.shape[0] % n:
+                raise ValueError(f"{name}: a hidden of "
+                                 f"{module.weight.shape[0]} does not split "
                                  f"over {n} tensor-parallel ranks")
-            module.tp_group = group
+        elif module.num_heads % n:
+            raise ValueError(f"{name}: {module.num_heads} heads do not "
+                             f"split over {n} tensor-parallel ranks")
+    split = {}
+    rows = []
+    for name, module in list(model.named_modules()):
         if isinstance(module, NN.Linear) and tp_dim(f"{name}.weight") == 1:
-            module.reduce_group = group
+            rows.append(name)
         for pname, p in list(module.named_parameters(recurse=False)):
             full = f"{name}.{pname}"
             if tp_dim(full) is None:
                 continue
             local = nn.Parameter(tp_slice(full, p.detach(), rank, n),
                                  requires_grad=p.requires_grad)
-            local.tp_group = group
+            split[id(local)] = (group,)
             setattr(module, pname, local)
+    for name in rows:
+        parent, _, child = name.rpartition(".")
+        owner = model.get_submodule(parent)
+        setattr(owner, child, RowParallelLinear(getattr(owner, child), group))
+    for _, module, inputs in entries:
+        if not isinstance(module, NN.Linear):
+            module.num_heads //= n
+        module.register_forward_pre_hook(_copy_inputs(group, inputs))
+    return split

@@ -152,8 +152,9 @@ class AgentBase:
         if layout is not None:
             wrapped = PS.shard_model(model, layout, train=not is_eval)
             self.net, self.manual_grads = wrapped.net, wrapped.manual
+            self.reg_split = wrapped.split
         else:
-            self.net, self.manual_grads = model, []
+            self.net, self.manual_grads, self.reg_split = model, [], {}
         self.reg_strength = float(getattr(args, "reg_strength", 0.0))
         self.reg_groups = stacked_param_groups(model)
         if is_eval:
@@ -217,7 +218,8 @@ class AgentBase:
         with trace.span("loss"):
             loss = self._task_loss(logits, gt)
             if self.reg_strength:
-                loss = loss + self.reg_strength * l2_reg(self.reg_groups)
+                loss = loss + self.reg_strength * l2_reg(self.reg_groups,
+                                                         self.reg_split)
             return loss
 
     def _train_step(self, clips, ids, mask, types, gt) -> torch.Tensor:

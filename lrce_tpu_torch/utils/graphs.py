@@ -19,7 +19,7 @@ of these holds (``why_eager`` names the first that does not):
   see every operation), and the current stream is not already capturing;
 - every input is a contiguous CUDA tensor or None;
 - no global module hook is set, and no layer below the module has a forward
-  hook, a tensor-parallel group (``tp_group`` / ``reduce_group``) or a
+  hook (tensor parallelism's, ``parallel/tensor_parallel.py``) or a
   parameter of a tensor subclass (FSDP's), whose collectives and Python a
   graph would not run.
 
@@ -60,8 +60,8 @@ PLAIN = (nn.Parameter, torch.Tensor)
 
 def scan(module: nn.Module) -> Optional[tuple]:
     """The addresses of ``module``'s parameters and buffers, or None when a
-    layer below it has a forward hook or a tensor-parallel group, or a
-    parameter is of a tensor subclass (FSDP's DTensor)."""
+    layer below it has a forward hook, or a parameter is of a tensor
+    subclass (FSDP's DTensor)."""
     # the attributes are read from __dict__: this runs on every call
     ptrs = []
     stack = [module]
@@ -70,10 +70,8 @@ def scan(module: nn.Module) -> Optional[tuple]:
         if m is None:
             continue
         d = m.__dict__
-        if (m is not module and (d["_forward_hooks"]
-                                 or d["_forward_pre_hooks"])) \
-                or d.get("tp_group") is not None \
-                or d.get("reduce_group") is not None:
+        if m is not module and (d["_forward_hooks"]
+                                or d["_forward_pre_hooks"]):
             return None
         for t in (*d["_parameters"].values(), *d["_buffers"].values()):
             if t is not None:

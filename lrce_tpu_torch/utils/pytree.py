@@ -1,16 +1,18 @@
 """Parameter helpers, counterpart of ``lrce_tpu/utils/pytree.py``: the L2
 regularizer sum_p ||p||_2 (un-squared norms, not weight decay), over whole
-parameters or over their shards (FSDP's DTensors, tensor parallelism's
-local pieces), where each shard's sum of squares is summed over the group
-that splits it before the root is taken, as lrce_tpu's GSPMD does."""
+parameters or over their rank pieces (FSDP's DTensors, and the pieces a
+layout names, ``parallel/sharding.Sharded.split``), where each piece's sum
+of squares is summed over the process groups that split it before the root
+is taken, as lrce_tpu's GSPMD does."""
 
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 # lrce_tpu stacks repeated layers on a leading axis, so one of its leaves
@@ -40,16 +42,34 @@ def _safe_sqrt(sq: torch.Tensor) -> torch.Tensor:
     return torch.where(sq > 0, norm, torch.zeros_like(sq))
 
 
-def _split_over(t: torch.Tensor) -> tuple:
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the ranks of the process ``group`` (all-reduce),
+    whose gradient passes through: each rank's piece keeps the gradient of
+    its own part (None: x itself)."""
+    return x if group is None else _SumOver.apply(x, group)
+
+
+def _split_over(t: torch.Tensor, split: Mapping[int, tuple]) -> tuple:
     """The process groups whose ranks each hold a piece of ``t``: an FSDP
-    DTensor's sharded mesh dimensions, a tensor-parallel piece's group."""
+    DTensor's sharded mesh dimensions, else ``split``'s entry for it."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(t, DTensor):
         return tuple(t.device_mesh.get_group(i)
                      for i, pl in enumerate(t.placements) if pl.is_shard())
-    group = getattr(t, "tp_group", None)
-    return () if group is None else (group,)
+    return split.get(id(t), ())
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -58,25 +78,27 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def l2_reg(groups: Iterable[Sequence[torch.Tensor]]) -> torch.Tensor:
+def l2_reg(groups: Iterable[Sequence[torch.Tensor]],
+           split: Optional[Mapping[int, tuple]] = None) -> torch.Tensor:
     """Sum over groups of the un-squared L2 norm of each group, as
     ``lrce_tpu.utils.pytree.l2_reg`` sums over its leaves
-    (``stacked_param_groups`` gives the same leaves for a model). The
-    squares of split groups are summed over their process groups, one
-    all-reduce per process group (``tensor_parallel.reduce_from_tp``: the
+    (``stacked_param_groups`` gives the same leaves for a model). split:
+    the process groups over which a parameter's rank pieces lie, by the
+    parameter's id (``parallel/sharding.Sharded.split``; FSDP's DTensors
+    name their own). The squares of split groups are summed over their
+    process groups, one all-reduce per process group (``sum_over``: the
     gradient of each piece stays its own)."""
-    from lrce_tpu_torch.parallel.tensor_parallel import reduce_from_tp
-
-    sqs, split = [], {}
+    split = split or {}
+    sqs, by_over = [], {}
     for i, g in enumerate(groups):
         sqs.append(sum(torch.sum(torch.square(_local(t).float())) for t in g))
-        over = _split_over(g[0])
+        over = _split_over(g[0], split)
         if over:
-            split.setdefault(tuple(map(id, over)), (over, []))[1].append(i)
-    for over, idx in split.values():
+            by_over.setdefault(tuple(map(id, over)), (over, []))[1].append(i)
+    for over, idx in by_over.values():
         total = torch.stack([sqs[i] for i in idx])
         for group in over:
-            total = reduce_from_tp(total, group)
+            total = sum_over(total, group)
         for j, i in enumerate(idx):
             sqs[i] = total[j]
     return sum(_safe_sqrt(sq) for sq in sqs)

@@ -302,10 +302,12 @@ def test_attn_fwd_groups_values(nwin, heads, sms, want):
     (200, 16, "attn_fwd_big_kernel"), (392, 32, "attn_fwd_big_kernel"),
     (400, 32, "attn_fwd_big_kernel"), (401, 32, "attn_fwd_big_kernel"),
     (432, 32, "attn_fwd_big_kernel"), (448, 16, "attn_fwd_big_kernel"),
-    (449, 32, "window_attn_kernel"), (1152, 32, "window_attn_kernel"),
-    (147, 64, "window_attn_kernel"), (392, 48, "window_attn_kernel")])
+    (449, 32, None), (1152, 32, None), (147, 64, None), (392, 48, None)])
 def test_attn_fwd_cta_by_shape(n, hd, cta):
+    """Two CTAs take head_dim 16 / 32 up to 448 tokens; no CTA takes any
+    other shape, and the one rule says so."""
     assert WA.attn_fwd_cta(n, hd) == cta
+    assert WA.attn_supported(n, hd) is (cta is not None)
 
 
 @pytest.mark.parametrize("n,blocks", [(161, 3), (176, 3), (200, 3),
@@ -362,7 +364,7 @@ def test_attn_fwd_big_constants_match_the_source():
     assert 16 * const("FB_WIDE_ROW_WARPS") == WA.ATTN_FWD_WIDE_BLOCK_ROWS
     assert const("FB_WIDE_NP") == WA.ATTN_FWD_WIDE_TOKENS
     assert const("FB_SPLITS") == WA.ATTN_FWD_KEY_SPLITS
-    assert const("FB_MAX_NP") == WA.ATTN_FWD_MAX_TOKENS
+    assert const("FB_MAX_NP") == WA.ATTN_MAX_TOKENS
     assert 8 * const("FW_MAX_NB") == WA.ATTN_FWD_SMALL_TOKENS
 
 

@@ -1,6 +1,7 @@
 """The one-launch back half of K1 / K3 (lrce_tpu_torch/ops/swin_block.py
 ``swin_back_half``, csrc/back_half.cu) and the Swin stage's choice of route
-by K4's shape rule (ops/window_attn.attn_bwd_supported), on the CPU.
+by the attention kernels' shape rule (ops/window_attn.attn_supported), on
+the CPU.
 
 On the CPU ``swin_back_half`` runs its plain version, ``back_half_plain``.
 Composed with the plain front half (LN1 + window gather, qkv, the attention
@@ -185,7 +186,7 @@ def test_back_half_refuses_other_devices():
                                      (448, 16, True), (449, 32, False),
                                      (1152, 32, False)])
 def test_attn_bwd_supported(n, hd, ok):
-    assert WA.attn_bwd_supported(n, hd) is ok
+    assert WA.attn_supported(n, hd) is ok
 
 
 def _routes(monkeypatch):
@@ -221,8 +222,8 @@ def test_stage_route_by_k4_shape(monkeypatch, frames, grad, route):
 
 
 def test_stage_takes_the_plain_block_where_k4_refuses(monkeypatch):
-    """head_dim 64 (one head at C = 64), which K4 does not take: with grad
-    mode on both blocks run the plain block; without grad the kernels."""
+    """head_dim 64 (one head at C = 64), which no attention kernel takes:
+    both blocks run the plain block, with grad mode on and off alike."""
     cfg = PS.SwinConfig(embed_dim=64, depths=(2,), num_heads=(1,),
                         window_size=(8, 7, 7))
     layer = PS.BasicLayer(64, 2, 1, cfg, False, torch.float32,
@@ -235,4 +236,4 @@ def test_stage_takes_the_plain_block_where_k4_refuses(monkeypatch):
     seen.clear()
     with torch.no_grad():
         layer(x, True, PS.DeviceConstants())
-    assert seen[0] == "fused_swin_block"
+    assert seen == ["swin_block"] * 2

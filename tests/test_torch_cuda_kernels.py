@@ -11,8 +11,8 @@ K2 at C = 1536; a Swin-L-shaped train step against the plain route; the
 attention-forward CTAs on their own: attn_fwd_kernel at the flagship's
 window and at the edges of its range, attn_fwd_big_kernel at N = 161-448
 (head_dim 16 / 32, masked by labels, densely and not, ragged blocks), each
-call's CTA named by the library's launch counts, and the WMMA CTA for a
-head_dim of 48 or 64), the
+call's CTA named by the library's launch counts, and a head_dim of 48 or
+64 refused before any launch), the
 K1 / K3 / K2 / K7 autograd.Functions' gradients against torch autograd
 through the plain versions, and the prefetcher's side-stream copies against
 blocking ones. Every test needs a GPU and skips without one. The file
@@ -692,13 +692,21 @@ def _only(launched, cta, times=1):
                          ids=["n392", "hd64", "hd48"])
 def test_attn_core_beyond_the_new_kernels_range(dev, n, hd, heads, masked):
     """Beyond attn_fwd_kernel's range: N = 392 at head_dim 32 runs
-    attn_fwd_big_kernel, a head_dim other than 16 or 32 the WMMA CTA."""
+    attn_fwd_big_kernel; a head_dim other than 16 or 32 is refused before
+    any launch."""
     case = _core_case(np.random.default_rng(31), dev, 2, 2, n, hd, heads,
                       "labels" if masked else None)
+    if hd not in (16, 32):
+        WA.attn_fwd_cta_launches(reset=True)
+        with pytest.raises(ValueError, match="head_dim 16 or 32"):
+            WA.window_attention_core(*case)
+        assert WA.attn_fwd_cta(n, hd) is None
+        assert WA.attn_fwd_cta_launches(reset=True) == dict.fromkeys(
+            WA.ATTN_FWD_CTAS, 0)
+        return
     got, launched = _cta_launches(lambda: WA.window_attention_core(*case))
-    _only(launched, WA.attn_fwd_cta(n, hd))
-    assert WA.attn_fwd_cta(n, hd) == ("attn_fwd_big_kernel" if n == 392
-                                      else "window_attn_kernel")
+    _only(launched, "attn_fwd_big_kernel")
+    assert WA.attn_fwd_cta(n, hd) == "attn_fwd_big_kernel"
     _close(got, WA.window_attention_core_plain(*case))
 
 
@@ -756,9 +764,9 @@ def test_k6_with_the_constructor_window(dev, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
-def test_k6_at_head_dim_64_runs_the_wmma_cta(dev, masked):
-    """The shapes only window_attn_kernel takes (head_dim 64 here) still
-    run it, held to the plain version."""
+def test_k6_at_head_dim_64_is_refused(dev, masked):
+    """K6 at head_dim 64, which no attention CTA takes, raises before any
+    launch (the Swin stage sends such a shape to the plain block)."""
     rng = np.random.default_rng(35)
     window, shift = (3, 7, 7), ((0, 3, 3) if masked else SHIFT0)
     case = _k4_case(rng, dev, (1, 3, 14, 14, 128), 2, window, shift)
@@ -767,9 +775,13 @@ def test_k6_at_head_dim_64_runs_the_wmma_cta(dev, masked):
                           device=dev)
     args = (x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, rel, mask, window, 2,
             1e-5, shift)
-    got, launched = _cta_launches(lambda: WA.fused_window_attention(*args))
-    _only(launched, "window_attn_kernel")
-    _close(got, WA.window_attention_plain(*args))
+    before = WA.fused_window_attention.launches
+    WA.attn_fwd_cta_launches(reset=True)
+    with pytest.raises(ValueError, match="head_dim 16 or 32"):
+        WA.fused_window_attention(*args)
+    assert WA.fused_window_attention.launches == before
+    assert WA.attn_fwd_cta_launches(reset=True) == dict.fromkeys(
+        WA.ATTN_FWD_CTAS, 0)
 
 
 @pytest.mark.parametrize("gather,shift", [(False, SHIFT0), (True, SHIFT0),
@@ -789,7 +801,7 @@ def test_attn_core_refuses_f32(dev):
                                     32, 4, None)
     with pytest.raises(TypeError, match="bfloat16"):
         WA.window_attention_core(qkv.float(), rel, None, heads)
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="head_dim 16 or 32"):
         WA.window_attention_core(qkv[..., :3 * 4 * 24].contiguous(), rel, None,
                                  heads)
 
@@ -910,9 +922,8 @@ def test_train_step_at_n392_matches_the_plain_route(dev):
     assert [f.launches - b for f, b in zip(wrappers, before)] == [6, 2, 8]
     # the forward attention of each block, and K6's recompute of it in the
     # backward: attn_fwd_big_kernel at N = 392 (stages 0-2), attn_fwd_kernel
-    # at N = 128 (stage 3), never the WMMA CTA
-    assert ctas == {"attn_fwd_kernel": 4, "attn_fwd_big_kernel": 12,
-                    "window_attn_kernel": 0}
+    # at N = 128 (stage 3)
+    assert ctas == {"attn_fwd_kernel": 4, "attn_fwd_big_kernel": 12}
     lp, gp = run(False)
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
     for a, b in zip(gk, gp):
@@ -998,15 +1009,13 @@ def test_train_step_at_n432_matches_the_plain_route(dev):
     and (3, 24, 24) in (3, 12, 12) windows of N = 432, shifted (0, 6, 6) in
     their second block, K1 + K3; stage 2 one such window a clip, unshifted,
     two K1; stage 3 (3, 6, 6), N = 108, two K1. Every block's K4 takes the
-    window (the rows / columns pair at N = 432) and K5 its MLP; no forward
-    call takes the WMMA CTA."""
+    window (the rows / columns pair at N = 432) and K5 its MLP."""
     launches = _swin_l_step_matches_the_plain_route(dev, 64)
     # each block's forward attention and K6's recompute of it: N = 432 at
     # stages 0-2, N = 108 at stage 3
     assert launches == {"K1": 6, "K3": 2, "K2": 0, "K7": 0, "K5": 8, "K4": 8,
                         "ctas": {"attn_fwd_kernel": 4,
-                                 "attn_fwd_big_kernel": 12,
-                                 "window_attn_kernel": 0}}
+                                 "attn_fwd_big_kernel": 12}}
 
 
 def test_train_step_at_swin_l_widths_matches_the_plain_route(dev):
@@ -1019,5 +1028,4 @@ def test_train_step_at_swin_l_widths_matches_the_plain_route(dev):
     # stage 2 (N = 432), K2 at stage 3 (N = 108)
     assert launches == {"K1": 2, "K3": 2, "K2": 4, "K7": 2, "K5": 8, "K4": 8,
                         "ctas": {"attn_fwd_kernel": 2,
-                                 "attn_fwd_big_kernel": 10,
-                                 "window_attn_kernel": 0}}
+                                 "attn_fwd_big_kernel": 10}}

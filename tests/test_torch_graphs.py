@@ -4,8 +4,8 @@
 On the CPU: every call runs the eager body and returns what it
 returns, and the rule that sends a call to the eager body refuses a
 gradient, ``training``, an active FLOP counter, a global hook, CPU inputs,
-a tensor-parallel group, a hook on an inner layer and a parameter of a
-tensor subclass; the key follows a replaced parameter and not an in-place
+a model made tensor-parallel, a hook on an inner layer and a parameter of
+a tensor subclass; the key follows a replaced parameter and not an in-place
 update; a traced request keeps its span tree and its counters.
 
 On the card (marker ``cuda``; no JAX imported, so it runs with
@@ -146,24 +146,28 @@ def test_why_eager_names_the_refusal(case):
     assert counts(mod) == (1, 0, 0)
 
 
-@pytest.mark.parametrize("where", ["tp_group", "reduce_group", "inner_hook",
+@pytest.mark.parametrize("where", ["tensor_parallel_oe",
+                                   "tensor_parallel_bert", "inner_hook",
                                    "subclass"])
 def test_scan_refuses_tensor_parallel_groups_and_inner_hooks(where):
-    mod = build("oe", TINY, "cpu")
-    layer = mod.fusion_transformer.transformer.layers[3]
+    """A model after ``shard_tensor_parallel`` (one rank, a stand-in group)
+    is refused by the hooks that tensor parallelism puts on its layers."""
+    from lrce_tpu_torch.parallel.tensor_parallel import shard_tensor_parallel
+
+    mod = build("bert" if where.endswith("bert") else "oe", TINY, "cpu")
     n = len(list(mod.parameters())) + len(list(mod.buffers()))
     assert len(graphs.scan(mod)) == n
     mod.register_forward_hook(lambda *_: None)     # the root's own: allowed
     assert len(graphs.scan(mod)) == n
-    if where == "tp_group":
-        layer.self_attn.tp_group = object()
-    elif where == "reduce_group":
-        layer.linear2.reduce_group = object()
-    elif where == "inner_hook":
-        layer.norm2.register_forward_pre_hook(lambda *_: None)
+    if where.startswith("tensor_parallel"):
+        shard_tensor_parallel(mod, 0, 1, object())
     else:
-        layer.norm3.weight = torch.nn.Parameter(
-            layer.norm3.weight.detach().as_subclass(_Sub))
+        layer = mod.fusion_transformer.transformer.layers[3]
+        if where == "inner_hook":
+            layer.norm2.register_forward_pre_hook(lambda *_: None)
+        else:
+            layer.norm3.weight = torch.nn.Parameter(
+                layer.norm3.weight.detach().as_subclass(_Sub))
     assert graphs.scan(mod) is None
 
 

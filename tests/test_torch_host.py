@@ -25,6 +25,7 @@ parity run under a minute.
 import ast
 import os
 import pickle
+import re
 from collections import deque
 from pathlib import Path
 from types import SimpleNamespace
@@ -641,3 +642,29 @@ def test_port_sources_import_neither_jax_nor_lrce_tpu():
                 assert name.split(".")[0] not in banned, (str(path), name)
         checked += 1
     assert checked > 25
+
+
+TP_NAMES = re.compile(r"\b(tp_group|reduce_group|copy_to_tp|reduce_from_tp)\b")
+
+
+def test_lower_layers_know_nothing_of_tensor_parallelism():
+    """Tensor parallelism lives behind ``lrce_tpu_torch/parallel/``: no
+    module of ops/, models/ or utils/ imports it or names its groups and
+    collectives."""
+    checked = 0
+    for layer in ("ops", "models", "utils"):
+        for path in sorted((REPO / "lrce_tpu_torch" / layer).rglob("*.py")):
+            text = path.read_text()
+            assert not TP_NAMES.search(text), (str(path),
+                                               TP_NAMES.search(text)[0])
+            for node in ast.walk(ast.parse(text, str(path))):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [f"{node.module}.{a.name}" for a in node.names]
+                for name in names:
+                    assert not name.startswith("lrce_tpu_torch.parallel"), (
+                        str(path), name)
+            checked += 1
+    assert checked > 15

@@ -140,20 +140,20 @@ def test_port_matches_the_plain_reference(train):
         assert err <= GRAD_TOL * max(float(want.norm()), 1e-6 * top), name
 
 
-@pytest.mark.parametrize("n,hd,fwd,bwd,cta", [
-    (432, 32, True, True, "attn_fwd_big_kernel"),
-    (432, 16, True, True, "attn_fwd_big_kernel"),
-    (448, 32, True, True, "attn_fwd_big_kernel"),
-    (392, 32, True, True, "attn_fwd_big_kernel"),
-    (147, 32, True, True, "attn_fwd_kernel"),
-    (1152, 32, False, False, "window_attn_kernel"),
-    (432, 64, True, False, "window_attn_kernel")])
-def test_shape_rules(n, hd, fwd, bwd, cta):
+@pytest.mark.parametrize("n,hd,ok,cta", [
+    (432, 32, True, "attn_fwd_big_kernel"),
+    (432, 16, True, "attn_fwd_big_kernel"),
+    (448, 32, True, "attn_fwd_big_kernel"),
+    (392, 32, True, "attn_fwd_big_kernel"),
+    (147, 32, True, "attn_fwd_kernel"),
+    (1152, 32, False, None),
+    (432, 64, False, None)])
+def test_shape_rules(n, hd, ok, cta):
     """Swin-L's N = 432 takes the mma.sync CTA forward and K4's pair
-    backward; the unclamped (8, 12, 12) window (N = 1152) no kernel."""
+    backward; the unclamped (8, 12, 12) window (N = 1152) and head_dim 64
+    no kernel, forward or backward."""
     assert WA.attn_fwd_cta(n, hd) == cta
-    assert WA.attn_fwd_supported(n, hd) is fwd
-    assert WA.attn_bwd_supported(n, hd) is bwd
+    assert WA.attn_supported(n, hd) is ok
 
 
 @pytest.mark.parametrize("c,heads,ok", [(192, 6, True), (768, 24, True),
@@ -204,13 +204,17 @@ K2_LN_MLP = ["fused_window_attention_hsplit", "fused_ln_mlp"] * 2
     # the unclamped (8, 12, 12) window, N = 1152: the plain block
     (64, 2, (8, 12, 12), True, 0, ["swin_block"] * 2),
     (64, 2, (8, 12, 12), False, 0, ["swin_block"] * 2),
+    # a (4, 12, 12) window, N = 576, past the 448 tokens any kernel takes:
+    # the plain block without grad too
+    (64, 2, (4, 12, 12), False, 0, ["swin_block"] * 2),
     # N = 432 at stage 0 widths: K1 and K3 in either mode
     (192, 6, (3, 24, 24), True, 0, ["fused_swin_block", "fused_swin_pair"]),
     (768, 24, (3, 24, 24), False, 2, K2_LN_MLP),
     (1024, 32, (3, 12, 12), True, 2, K2_LN_MLP),
     (1024, 32, (3, 12, 12), False, 2, K2_LN_MLP),
 ], ids=["c1536-grad", "c1536-nograd", "c1536-lnmlp", "c768-lnmlp",
-        "c2048", "n1152-grad", "n1152-nograd", "c192-n432", "c768-nograd",
+        "c2048", "n1152-grad", "n1152-nograd", "n576-nograd", "c192-n432",
+        "c768-nograd",
         "c1024-grad", "c1024-nograd"])
 def test_stage_route(monkeypatch, c, heads, dims, grad, k7, want):
     """The route never sends a stage to a kernel that refuses it. It is
