@@ -123,7 +123,7 @@ class LRCEHead(nn.Module):
         self.projection_layer = (
             Linear(video_feature_dim, feature_dim, dtype=dtype, generator=generator)
             if video_feature_dim != feature_dim else None)
-        self.graphs = GraphCache("fusion")
+        self.graphs = GraphCache("fusion", train=True)
 
     def _embed(self, video, text, training, generator):
         with trace.span("fusion.embed"):
@@ -145,7 +145,8 @@ class LRCEHead(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """video (B, n_clips, T, HW, Dv); text (B, L, D), or (B, M, L, D) for
         mc. Returns (B, num_classes) for oe, (B, M) for mc, (B,) for count.
-        A no-grad call on the card replays ``_forward`` from a CUDA graph
+        A no-grad call on the card replays ``_forward`` from a CUDA graph,
+        and a training call its forward and backward from two
         (``utils/graphs.py``)."""
         del texts_attention_mask  # reference quirk: never applied
         return self.graphs(self, self._forward, (video, text), training,

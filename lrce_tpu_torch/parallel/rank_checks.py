@@ -66,7 +66,9 @@ def agent_run(device: torch.device, cfg, state, batches, fsdp: int,
     this rank's part of global batch i, ("save", path, only_model) /
     ("load", path, only_model) a checkpoint, ("l2",) the regularizer's
     value, ("snapshot",) the whole state at this point, ("fresh",) a new
-    agent from ``state`` (a second run in the same ranks). Returns (on rank
+    agent from ``state`` (a second run in the same ranks), ("eager",) the
+    fusion's training call run eagerly from here on, ("graphs",) the
+    fusion's graph counts (``utils/graphs.GraphCache``). Returns (on rank
     0) every rank's step results and l2 values, in rank order, the
     snapshots, and the whole state dict and optimizer state after the
     plan."""
@@ -97,6 +99,13 @@ def agent_run(device: torch.device, cfg, state, batches, fsdp: int,
         elif op[0] == "fresh":
             agent = build_agent(device, cfg, state, fsdp, model_axis, args,
                                 seed)
+        elif op[0] == "eager":
+            from lrce_tpu_torch.utils.graphs import GraphCache
+
+            agent.model.fusion_model.graphs = GraphCache("fusion")
+        elif op[0] == "graphs":
+            g = agent.model.fusion_model.graphs
+            seen.append((g.eager, g.captures, g.replays, g.backward_replays))
         else:
             raise ValueError(op)
     every = [None] * PM.world_size()

@@ -24,8 +24,11 @@ listening, each span enters ``record_function("lrce." + name)`` as well, so
 that the device trace holds it beside the operations it launched.
 
 Nothing is written to disk: callers ``drain`` what was recorded. Spans are
-recorded from the thread that opens them; ``drain`` is called with no span
-open.
+recorded from the thread that opens them; one opened on a thread with no
+span open, while the thread that opened the current unit has one open,
+goes under that thread's innermost span (the autograd engine runs a CUDA
+backward node on a thread of its own while the thread that called
+``backward`` waits inside its span). ``drain`` is called with no span open.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class _State:
         self.spans: List = []
         self.counters: Dict[str, int] = defaultdict(int)
         self.units = 0
+        self.unit = []      # the span stack of the thread of the last unit
         self.local = threading.local()
 
 
@@ -77,11 +81,13 @@ class _Open:
         stack = getattr(st.local, "stack", None)
         if stack is None:
             stack = st.local.stack = []
-        if stack:
-            self.parent, self.step = stack[-1].index, stack[-1].step
+        outer = stack or st.unit
+        if outer:
+            self.parent, self.step = outer[-1].index, outer[-1].step
         else:
             self.parent, self.step = -1, st.units
             st.units += 1
+            st.unit = stack
         self.store = st.spans
         self.index = len(self.store)
         self.store.append(None)

@@ -115,6 +115,32 @@ def test_on_parents_steps_self_time_counters_and_drain():
     assert trace.drain()[0][0].step == 0
 
 
+def test_a_span_on_another_thread_goes_under_the_open_unit():
+    """The autograd engine runs a CUDA backward node on a thread of its own
+    while the caller waits inside its span: a span opened on a thread with
+    none open goes under the innermost span of the thread that holds the
+    unit, and starts a unit of its own when no unit is open."""
+    import threading
+
+    def on_a_thread(name):
+        t = threading.Thread(target=lambda: trace.span(name).__enter__()
+                             .__exit__(None, None, None))
+        t.start()
+        t.join()
+
+    trace.enable()
+    with trace.span("step"):
+        with trace.span("backward"):
+            on_a_thread("fusion.graph_bwd")
+        with trace.span("optimizer"):
+            pass
+    on_a_thread("alone")
+    spans, _ = trace.drain()
+    assert [(s.name, s.parent, s.step) for s in spans] == [
+        ("step", -1, 0), ("backward", 0, 0), ("fusion.graph_bwd", 1, 0),
+        ("optimizer", 0, 0), ("alone", -1, 1)]
+
+
 def test_host_and_self_ms_are_medians_over_units():
     S = trace.Span
     ms = 1_000_000
